@@ -1,0 +1,129 @@
+"""White-box gradient attacks: FGSM, PGD, CW-inf — one iteration engine.
+
+Port of speakerguard_tpu/attacks/gradient.py (reference attack/FGSM.py /
+PGD.py / CWinf.py).  Each iteration takes an EOT-averaged value-and-grad and
+the signed step + clip; the JAX package's ``lax.scan`` over iterations (and
+over random restarts) is a Python loop here.  The final success evaluation
+is exact (reference FGSM.py:44-47).
+
+Class relationships preserved: FGSM == PGD with max_iter=1, step=epsilon,
+global clip bounds; CWinf == PGD with Margin loss forced.
+"""
+
+import torch
+
+from speakerguard_tpu_torch.adaptive.eot import eot, eot_no_grad
+from speakerguard_tpu_torch.attacks.base import (Attack, make_generator,
+                                                 normalize_wav_input)
+from speakerguard_tpu_torch.attacks.losses import (compare, majority_vote,
+                                                   resolve_loss)
+
+
+class PGD(Attack):
+
+    def __init__(self, model, task="CSI", epsilon=0.002, step_size=0.0004,
+                 max_iter=10, num_random_init=0, loss="Entropy",
+                 targeted=False, batch_size=None, EOT_size=1):
+        # batch_size: optional memory knob chunking the input like the
+        # reference's attack() loops; None = the whole input in one batch.
+        # The EOT_size repeats run one after another (adaptive/eot.py).
+        self.batch_size = batch_size
+        self.model = model
+        self.task = task
+        self.epsilon = epsilon
+        self.step_size = step_size
+        self.max_iter = max_iter
+        self.num_random_init = num_random_init
+        self.targeted = targeted
+        self.EOT_size = max(1, EOT_size)
+
+        self.threshold = None
+        if task in ("SV", "OSI"):
+            self.threshold = model.threshold
+        self.loss_fn, self.grad_sign = resolve_loss(
+            loss_name=loss, targeted=targeted, task=task,
+            threshold=self.threshold, clip_max=False)
+
+    def _bounds(self, x):
+        lower = torch.clamp(x - self.epsilon, min=-1.0)
+        upper = torch.clamp(x + self.epsilon, max=1.0)
+        return lower, upper
+
+    def _single(self, x, y, gen, do_init_noise):
+        """One restart: bounds, optional init noise, the iterations, the
+        exact final evaluation."""
+        model = self.model
+        eot_run = eot(lambda xx, g: model.score(xx, rng=g), self.loss_fn,
+                      model.threshold, self.EOT_size)
+        eot_ng = eot_no_grad(lambda xx, g: model.score(xx, rng=g),
+                             self.loss_fn, model.threshold)
+        lower, upper = self._bounds(x)
+        xx = x
+        if do_init_noise:
+            # the reference does NOT clip the init point (PGD.py:59-61)
+            noise = torch.rand(x.shape, generator=gen, device=x.device,
+                               dtype=x.dtype)
+            xx = x + (2.0 * noise - 1.0) * self.epsilon
+        for _ in range(self.max_iter):
+            _, _, grad, _ = eot_run(xx, y, gen)
+            xx = xx + self.step_size * torch.sign(grad) * self.grad_sign
+            xx = torch.clamp(xx, lower, upper)
+        scores, loss, decisions = eot_ng(xx, y, gen)
+        predict = majority_vote(decisions, scores.shape[-1])
+        return xx, predict, loss
+
+    def attack(self, x, y, rng=None):
+        """x: (B, L) | (B, 1, L) | (L,) scale-domain audio; y: (B,) labels;
+        rng: torch.Generator, int seed or None.
+        Returns (adversarial audio shaped like x, per-sample success list)."""
+        dev = self.model.device
+        x, restore = normalize_wav_input(x, device=dev)
+        y = torch.as_tensor(y, device=dev)
+        gen = make_generator(rng, dev)
+        adver, success = self.run_batched(self._attack_whole, x, y, gen,
+                                          self.batch_size)
+        return restore(adver), success
+
+    def _attack_whole(self, x, y, gen):
+        if self.num_random_init > 1:
+            # best whole-batch success rate over restarts; strict '>' keeps
+            # the earliest restart on ties (reference PGD.py:54-77)
+            best_rate, best_x, best_pred = -1.0, None, None
+            for _ in range(self.num_random_init):
+                x_adv, predict, _ = self._single(x, y, gen, True)
+                rate = float(compare(y, predict, self.targeted).float()
+                             .mean())
+                if rate > best_rate:
+                    best_rate, best_x, best_pred = rate, x_adv, predict
+            adver_x, predict = best_x, best_pred
+        else:
+            adver_x, predict, _ = self._single(x, y, gen,
+                                               self.num_random_init > 0)
+        return adver_x, self.compare(y, predict, self.targeted)
+
+
+class FGSM(PGD):
+
+    def __init__(self, model, task="CSI", epsilon=0.002, loss="Entropy",
+                 targeted=False, batch_size=None, EOT_size=1):
+        super().__init__(model, task=task, epsilon=epsilon,
+                         step_size=epsilon, max_iter=1, num_random_init=0,
+                         loss=loss, targeted=targeted, batch_size=batch_size,
+                         EOT_size=EOT_size)
+
+    def _bounds(self, x):
+        # FGSM clips to the global audio range, not an epsilon ball
+        # (reference FGSM.py:74-81)
+        return torch.full_like(x, -1.0), torch.full_like(x, 1.0)
+
+
+class CWinf(PGD):
+
+    def __init__(self, model, task="CSI", epsilon=0.002, step_size=0.0004,
+                 max_iter=10, num_random_init=0, loss="Margin",
+                 targeted=False, batch_size=None, EOT_size=1):
+        super().__init__(model, task=task, epsilon=epsilon,
+                         step_size=step_size, max_iter=max_iter,
+                         num_random_init=num_random_init, loss="Margin",
+                         targeted=targeted, batch_size=batch_size,
+                         EOT_size=EOT_size)

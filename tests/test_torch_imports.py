@@ -1,0 +1,41 @@
+"""Import hygiene of the port: no module of speakerguard_tpu_torch, and not
+chip_smoke.py, imports jax or the JAX package speakerguard_tpu."""
+
+import ast
+import importlib
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "speakerguard_tpu_torch").rglob("*.py"))
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "speakerguard_tpu", "flax", "optax")
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_port_module_imports_on_cpu():
+    for path in PORT_FILES:
+        rel = path.relative_to(ROOT).with_suffix("")
+        name = ".".join(p for p in rel.parts if p != "__init__")
+        importlib.import_module(name)
