@@ -3,29 +3,38 @@
 
     python3 chip_smoke.py                 # what the checks need
     python3 chip_smoke.py --profile DIR   # also a torch.profiler table of
-                                          # one PGD iteration, written to
-                                          # DIR/profile_pgd1.txt
+                                          # one PGD iteration of each slice,
+                                          # written to DIR/profile_<slice>.txt
 
 Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi); exits non-zero
               when torch sees no CUDA card.
-  2. build    nvcc builds the port's one kernel source, csrc/chol.cu, into
+  2. build    nvcc builds the port's kernel sources, csrc/chol.cu and
+              csrc/gmm.cu, one process each, side by side, into
               csrc/_build/.
   3. kernel   each kernel against its plain PyTorch version on the card at
-              the main path's shapes and at odd shapes, on a diagonally
-              dominant and an i-vector-shaped input: error, the blocked
-              residual, strictly-lower zeros, CUDA-event times of the
-              kernel, the plain version and one PyTorch library call, and
-              the roofline bound.
+              the main path's shapes and at ragged ones: error, CUDA-event
+              times of the kernel, the plain version and one PyTorch library
+              call, and the roofline bound.  cholesky_rt on a diagonally
+              dominant and an i-vector-shaped input (also the blocked
+              residual and strictly-lower zeros); fused_loglike, stats_fwd
+              and stats_bwd (the latter on the posts16 stats_fwd produced).
   4. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
               R=200, weights from a numpy seed), 10 enrolled speakers, task
               CSI-E, 64 utterances of 3 s; make_decision, then PGD (10
-              iterations, eps 0.002, step 0.0004, Entropy).  The kernel
-              launch counts are read around this run and must equal one
-              factorization per PGD iteration plus one per exact evaluation.
+              iterations, eps 0.002, step 0.0004, Entropy) on the exact
+              gradient path (FastPath(enabled=False)).  The launch counts
+              are set to 0 just before and read just after: cholesky_rt
+              once per PGD iteration plus once per exact evaluation (12).
               The card's scores are checked against the CPU plain path on a
               small model.
-  5. kernels  one line listing every ported kernel.
+  5. slice_fast_kernels  the same run with FastPath(gmm_topk=0,
+              stats_kernel=True) and loglike_kernel=True: stats_fwd and
+              stats_bwd once per iteration (10 each), fused_loglike once per
+              exact evaluation (2), cholesky_rt 12; no plain call anywhere.
+  6. slice_fast_default  the same run with FastPath() (top-K 256, the
+              unfused bf16 stats): cholesky_rt 12.
+  7. kernels  one line listing every ported kernel.
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -35,6 +44,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -196,27 +206,174 @@ def phase_small_reference(torch):
         raise RuntimeError(f"card vs CPU scores differ by {err}")
 
 
-def phase_slice(torch, chol, profile_dir):
+def gmm_bounds(b, t, d, c):
+    """Least times (ms) of the three GMM kernels on this card: each input
+    read once and each output written once at the memory rate, against
+    their products at the type's peak rate (f32 for fused_loglike, bf16
+    for the stats kernels) plus their elementwise work at the f32 rate.
+    Returns {name: (bound_ms, bound_by)}."""
+    n, p = b * t, d * (d + 1) // 2
+    f = d + p
+
+    def bound(nbytes, bf16_flops, f32_flops):
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = (bf16_flops / BF16_FLOPS + f32_flops / F32_FLOPS) * 1e3
+        return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms
+                                     else "operations")
+
+    return {
+        # x, quad_proj, gconsts in; loglike out.  aug products + the GEMM
+        "fused_loglike": bound(4 * (n * d + f * c + c + n * c), 0,
+                               n * p + 2.0 * n * f * c),
+        # x, proj16, gconsts in; zeroth, first, posts16 out.  loglike and
+        # first products; aug products, softmax (max, exp, sum, divide)
+        "stats_fwd": bound(4 * n * d + 2 * f * c + 4 * c + 4 * b * c
+                           + 4 * b * c * d + 2 * n * c,
+                           2.0 * n * f * c + 2.0 * n * c * d,
+                           n * p + 4.0 * n * c),
+        # x, proj16, posts16, dzeroth, dfirst in; dx out.  dp, daug and the
+        # direct products; the softmax VJP and the chain rule
+        "stats_bwd": bound(4 * n * d + 2 * f * c + 2 * n * c + 4 * b * c
+                           + 4 * b * c * d + 4 * n * d,
+                           2.0 * n * f * c + 4.0 * n * c * d,
+                           4.0 * n * c + 4.0 * n * p),
+    }
+
+
+def phase_gmm_kernels(torch):
+    """fused_loglike, stats_fwd and stats_bwd against their plain versions
+    at the main path's shape (64 x 300 frames, D=72, C=2048) and at ragged
+    ones (T not a multiple of the 64-frame tile, C not a multiple of the
+    64-component tile, small D).  Tolerances, with their reasons:
+      fused_loglike  2e-6 of max |loglike|: f32 sums of 2700 products in
+                     another order (the kernel is float32 throughout);
+      stats_fwd      posts16 within half a bf16 ulp (its rounding) + 1e-3
+                     relative of the plain f32 posteriors: the kernel's
+                     tensor-core sums of 2700 bf16 products differ from the
+                     plain f32 GEMM's by ~1e-4 at loglikes of a few hundred,
+                     which moves a posterior by ~1e-4 of itself; zeroth to
+                     1e-4 of its scale; first to 1e-5 of its scale plus
+                     exactly what the posts16 differences move;
+      stats_bwd      on stats_fwd's own posts16: 1e-5 of the gradient's
+                     scale on all but 5% of entries, 2e-3 on the rest, where
+                     bf16(dl) flips by one ulp (2^-7) at a rounding boundary.
+    Returns {name: main-shape record}."""
+    from speakerguard_tpu_torch.models.gmm import random_gmm
+    from speakerguard_tpu_torch.ops import gmm_loglike as L
+    from speakerguard_tpu_torch.ops import gmm_stats as S
+    main = {}
+    for b, t, d, c in [(64, 300, 72, 2048), (3, 37, 10, 200),
+                       (2, 130, 6, 64)]:
+        is_main = (b, t, d, c) == (64, 300, 72, 2048)
+        p = random_gmm(np.random.default_rng(c + d), c, d, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(t)
+        x = torch.randn((b, t, d), generator=g, device="cuda")
+        proj16 = p.quad_proj.to(torch.bfloat16)
+        dz = torch.randn((b, c), generator=g, device="cuda")
+        df = torch.randn((b, c, d), generator=g, device="cuda")
+        bounds = gmm_bounds(b, t, d, c)
+        shape = {"B": b, "T": t, "D": d, "C": c}
+
+        out = L.fused_loglike(x, p.quad_proj, p.gconsts)
+        torch.cuda.synchronize()
+        want = L.fused_loglike_plain(x, p.quad_proj, p.gconsts)
+        err = float((out - want).abs().max())
+        tol = 2e-6 * float(want.abs().max())
+        recs = {"fused_loglike": {"max_abs_err": err, "tolerance": tol,
+                                  "ok": err <= tol}}
+
+        z, f, post16 = S.stats_fwd(x, proj16, p.gconsts)
+        torch.cuda.synchronize()
+        zw, fw, pw = S.stats_fwd_plain(x, proj16, p.gconsts)
+        pf = S.posteriors_plain(x, proj16, p.gconsts)
+        z_err = float((z - zw).abs().max())
+        p_ok = bool(((post16.float() - pf).abs()
+                     <= (2.0 ** -8 + 1e-3) * pf.abs() + 1e-37).all())
+        flips = (post16.float() - pw.float()).abs()
+        f_bound = flips.mT @ S._bf(x).abs() + 1e-5 * float(fw.abs().max())
+        f_ok = bool(((f - fw).abs() <= f_bound).all())
+        recs["stats_fwd"] = {
+            "max_abs_err": max(z_err, float((f - fw).abs().max())),
+            "zeroth_max_abs_err": z_err,
+            "zeroth_tolerance": 1e-4 * float(zw.abs().max()),
+            "first_max_abs_err": float((f - fw).abs().max()),
+            "posts16_share_differing": float((flips > 0).float().mean()),
+            "posts16_within_half_ulp_plus_1e-3": p_ok,
+            "first_within_flip_bound": f_ok,
+            "ok": (z_err <= 1e-4 * float(zw.abs().max())) and p_ok and f_ok}
+
+        dx = S.stats_bwd(x, proj16, post16, dz, df)
+        torch.cuda.synchronize()
+        dw = S.stats_bwd_plain(x, proj16, post16, dz, df)
+        scale = float(dw.abs().max())
+        e = (dx - dw).abs()
+        share = float((e > 1e-5 * scale).float().mean())
+        recs["stats_bwd"] = {"max_abs_err": float(e.max()),
+                             "max_err_over_scale": float(e.max()) / scale,
+                             "share_over_1e-5": share,
+                             "ok": share <= 0.05
+                             and float(e.max()) <= 2e-3 * scale}
+
+        if is_main:
+            aug = L.augment_plain(x)
+            aug16 = S._bf(x)
+            rows, cols = L.packed_indices(d, x.device)
+            aug16 = torch.cat([aug16, S._bf(aug16[..., rows]
+                                            * aug16[..., cols])], dim=-1)
+            aug16 = aug16.reshape(-1, aug16.shape[-1]).to(torch.bfloat16)
+            aug = aug.reshape(-1, aug.shape[-1])
+            g16 = p.gconsts.to(torch.bfloat16)
+            timing = {
+                "fused_loglike": (
+                    lambda: L.fused_loglike(x, p.quad_proj, p.gconsts),
+                    lambda: L.fused_loglike_plain(x, p.quad_proj, p.gconsts),
+                    lambda: torch.addmm(p.gconsts, aug, p.quad_proj)),
+                "stats_fwd": (
+                    lambda: S.stats_fwd(x, proj16, p.gconsts),
+                    lambda: S.stats_fwd_plain(x, proj16, p.gconsts),
+                    lambda: torch.addmm(g16, aug16, proj16)),
+                "stats_bwd": (
+                    lambda: S.stats_bwd(x, proj16, post16, dz, df),
+                    lambda: S.stats_bwd_plain(x, proj16, post16, dz, df),
+                    lambda: torch.addmm(g16, aug16, proj16)),
+            }
+            for name, (kern, plain, lib) in timing.items():
+                recs[name]["ms"] = cuda_ms(kern, 2, 10)
+                recs[name]["plain_ms"] = cuda_ms(plain, 1, 3)
+                recs[name]["library_ms"] = cuda_ms(lib, 2, 10)
+                recs[name]["library_call"] = (
+                    "torch.addmm(gconsts, aug, quad_proj) on a pre-built "
+                    + ("f32" if name == "fused_loglike" else "bf16")
+                    + " aug (no single PyTorch call computes the fused "
+                      "function)")
+                recs[name]["bound_ms"], recs[name]["bound_by"] = bounds[name]
+            del aug, aug16
+        for name, rec in recs.items():
+            rec = {"phase": "kernel", "kernel": name,
+                   "case": "main" if is_main else "ragged", **shape, **rec}
+            emit(rec)
+            if not rec["ok"]:
+                raise RuntimeError(f"{name} {shape}: {rec}")
+            if is_main:
+                main[name] = rec
+    return main
+
+
+def build_model(torch, params, fast, loglike_kernel, enroll):
+    from speakerguard_tpu_torch.models.iv_plda import IvPlda
+    model = IvPlda(params, fast=fast, loglike_kernel=loglike_kernel)
+    model.set_enrollment([f"spk{i}" for i in range(len(enroll))], enroll)
+    return model
+
+
+def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
+              batch=64, iters=10):
+    """make_decision, then PGD-`iters` on ``model``, after a 1-iteration
+    warm-up (first-use costs: lazy module loading, allocator growth,
+    library handles).  Every wrapper's counts are set to 0 just before the
+    run and read just after; ``expected`` maps names to launch counts, and
+    every plain count must stay 0.  Returns the launch counts."""
     from speakerguard_tpu_torch.attacks import PGD
-    from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
-                                                       random_iv_plda_params)
-    batch, length, n_spk, iters = 64, 48000, 10, 10
-    t0 = time.perf_counter()
-    params = random_iv_plda_params(np.random.default_rng(0), 2048, 72, 600,
-                                   200, device="cuda")
-    model = IvPlda(params)
-    rng = np.random.default_rng(1)
-    enroll_wavs = rng.uniform(-0.3, 0.3, (n_spk, length)).astype(np.float32)
-    with torch.no_grad():
-        enroll = model.embedding(torch.tensor(enroll_wavs, device="cuda"))
-    model.set_enrollment([f"spk{i}" for i in range(n_spk)], enroll)
-    x = torch.tensor(rng.uniform(-0.3, 0.3, (batch, length)).astype(
-        np.float32), device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    # one short attack first, so the timed run below pays no first-use
-    # costs (lazy module loading of the backward's kernels, allocator
-    # growth, library handles)
     t0 = time.perf_counter()
     PGD(model, task="CSI", epsilon=0.002, step_size=0.0004, max_iter=1,
         loss="Entropy").attack(x, torch.zeros(batch, dtype=torch.long,
@@ -224,7 +381,8 @@ def phase_slice(torch, chol, profile_dir):
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
-    chol.cholesky_rt.reset_counts()
+    for w in wrappers.values():
+        w.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -238,39 +396,76 @@ def phase_slice(torch, chol, profile_dir):
     adver, success = atk.attack(x, labels, rng=0)
     torch.cuda.synchronize()
     pgd_s = time.perf_counter() - t0
-    launches = chol.cholesky_rt.launches
-    plain_calls = chol.cholesky_rt.plain_calls
-    expected = 1 + iters + 1  # make_decision + one per iteration + final
+    launches = {k: w.launches for k, w in wrappers.items()}
+    plain = {k: w.plain_calls for k, w in wrappers.items()}
 
     finite = bool(torch.isfinite(scores).all() and torch.isfinite(adver).all())
     within = float((adver - x).abs().max()) <= 0.002 + 1e-6
-    rec = {"phase": "slice", "model": "iv_plda", "task": "CSI-E",
-           "C": 2048, "D": 72, "IV": 600, "R": 200, "speakers": n_spk,
-           "batch": batch, "samples": length, "attack": "PGD",
-           "iterations": iters, "setup_s": setup_s,
-           "warmup_pgd1_s": warmup_s,
-           "make_decision_s": decide_s, "pgd_s": pgd_s,
-           "pgd_ms_per_iter": pgd_s * 1e3 / iters,
+    fast = model.fast_path
+    rec = {"phase": name, "model": "iv_plda", "task": "CSI-E",
+           "C": 2048, "D": 72, "IV": 600, "R": 200,
+           "speakers": model.num_spks, "batch": batch,
+           "samples": int(x.shape[1]), "attack": "PGD", "iterations": iters,
+           "fast_path": None if fast is None else vars(fast),
+           "loglike_kernel": model.loglike_kernel,
+           "warmup_pgd1_s": warmup_s, "make_decision_s": decide_s,
+           "pgd_s": pgd_s, "pgd_ms_per_iter": pgd_s * 1e3 / iters,
            "pgd_utts_per_s": batch / pgd_s,
            "asr_pct": 100.0 * sum(success) / batch,
            "scores_shape": list(scores.shape), "finite": finite,
            "within_eps": within,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "cholesky_rt_launches": launches,
-           "cholesky_rt_expected": expected,
-           "cholesky_rt_plain_calls": plain_calls}
+           "launches": launches, "launches_expected": expected,
+           "plain_calls": plain}
     emit(rec)
-    if not (finite and within and list(scores.shape) == [batch, n_spk]):
-        raise RuntimeError(f"slice output check failed: {rec}")
-    if launches != expected or plain_calls != 0:
-        raise RuntimeError(f"cholesky_rt launches {launches}, plain calls "
-                           f"{plain_calls}; expected {expected} launches")
+    if not (finite and within
+            and list(scores.shape) == [batch, model.num_spks]):
+        raise RuntimeError(f"{name} output check failed: {rec}")
+    wrong = {k: v for k, v in expected.items() if launches[k] != v}
+    if wrong or any(plain.values()):
+        raise RuntimeError(f"{name}: launches {launches} (expected "
+                           f"{expected}), plain calls {plain}")
     if profile_dir:
-        profile_one_iteration(torch, model, x, labels, profile_dir)
+        profile_one_iteration(torch, model, x, labels, profile_dir, name)
     return launches
 
 
-def profile_one_iteration(torch, model, x, labels, out_dir):
+def phase_slices(torch, wrappers, profile_dir):
+    """The three slices on one set of full-width weights (the models share
+    the parameter tensors).  Returns {slice: launch counts}."""
+    from speakerguard_tpu_torch.models.base import FastPath
+    from speakerguard_tpu_torch.models.iv_plda import random_iv_plda_params
+    batch, length, n_spk, iters = 64, 48000, 10, 10
+    t0 = time.perf_counter()
+    params = random_iv_plda_params(np.random.default_rng(0), 2048, 72, 600,
+                                   200, device="cuda")
+    rng = np.random.default_rng(1)
+    enroll_wavs = rng.uniform(-0.3, 0.3, (n_spk, length)).astype(np.float32)
+    exact = build_model(torch, params, FastPath(enabled=False), False,
+                        np.zeros((n_spk, 200), np.float32))
+    with torch.no_grad():
+        enroll = exact.embedding(torch.tensor(enroll_wavs, device="cuda"))
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (batch, length)).astype(
+        np.float32), device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "setup", "seconds": time.perf_counter() - t0})
+    chol_only = {"cholesky_rt": 1 + iters + 1}
+    slices = [
+        ("slice", FastPath(enabled=False), False, chol_only),
+        ("slice_fast_kernels", FastPath(gmm_topk=0, stats_kernel=True), True,
+         {"cholesky_rt": 1 + iters + 1, "stats_fwd": iters,
+          "stats_bwd": iters, "fused_loglike": 2}),
+        ("slice_fast_default", FastPath(), False, chol_only),
+    ]
+    out = {}
+    for name, fast, kernel, expected in slices:
+        model = build_model(torch, params, fast, kernel, enroll)
+        out[name] = run_slice(torch, name, model, x, wrappers, expected,
+                              profile_dir, batch, iters)
+    return out
+
+
+def profile_one_iteration(torch, model, x, labels, out_dir, name):
     from torch.profiler import ProfilerActivity, profile as tprofile
     from speakerguard_tpu_torch.attacks import PGD
     atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
@@ -296,10 +491,10 @@ def profile_one_iteration(torch, model, x, labels, out_dir):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_pgd1.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(table)
     top = sorted(events, key=lambda e: -dev_us(e))
-    emit({"phase": "profile", "iterations_profiled": 1,
+    emit({"phase": "profile", "slice": name, "iterations_profiled": 1,
           "note": "one PGD iteration plus the exact final evaluation; "
                   "wall time includes the profiler's own overhead",
           "wall_ms": wall_ms, "device_ms": device_ms,
@@ -321,8 +516,9 @@ def main(argv):
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        import speakerguard_tpu_torch  # noqa: F401  (turns TF32 off)
+        import speakerguard_tpu_torch  # noqa: F401  (TF32 off)
         from speakerguard_tpu_torch.ops import _build, chol
+        from speakerguard_tpu_torch.ops import gmm_loglike, gmm_stats
     except ImportError as exc:
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({exc})", file=sys.stderr)
@@ -340,23 +536,50 @@ def main(argv):
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    log = _build.build("chol")
+    sources = ("chol", "gmm")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        logs = dict(zip(sources, pool.map(_build.build, sources)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "Compiling entry" in ln]})
+          "ptxas": {src: [ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "Compiling entry" in ln
+                          or "spill" in ln]
+                    for src, log in logs.items()}})
 
-    main_rec = phase_kernels(torch, chol)
+    chol_rec = phase_kernels(torch, chol)
+    gmm_recs = phase_gmm_kernels(torch)
     phase_small_reference(torch)
-    launches = phase_slice(torch, chol, profile_dir)
+    wrappers = {"cholesky_rt": chol.cholesky_rt,
+                "fused_loglike": gmm_loglike.fused_loglike,
+                "stats_fwd": gmm_stats.stats_fwd,
+                "stats_bwd": gmm_stats.stats_bwd}
+    launches = phase_slices(torch, wrappers, profile_dir)
 
-    emit({"kernels": [{
+    gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"
+    replaces = {
+        "fused_loglike": "speakerguard_tpu/ops/pallas_gmm.py:61",
+        "stats_fwd": "speakerguard_tpu/ops/pallas_gmm_stats.py:179",
+        "stats_bwd": "speakerguard_tpu/ops/pallas_gmm_stats.py:226"}
+    kernels = [{
         "name": "cholesky_rt", "route": "cuda",
         "source": "speakerguard_tpu_torch/csrc/chol.cu",
         "replaces": "speakerguard_tpu/ops/pallas_chol.py:489",
-        "launches": launches, "max_abs_err": main_rec["max_abs_err"],
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"]}]})
+        "launches": launches["slice"]["cholesky_rt"],
+        "launches_by_path": {k: v["cholesky_rt"]
+                             for k, v in launches.items()},
+        "max_abs_err": chol_rec["max_abs_err"],
+        "ms": chol_rec["ms"], "plain_ms": chol_rec["plain_ms"],
+        "bound_ms": chol_rec["bound_ms"], "bound_by": chol_rec["bound_by"],
+        "library_ms": chol_rec["library_ms"]}]
+    for k, rec in gmm_recs.items():
+        kernels.append({
+            "name": k, "route": "cuda", "source": gmm_src,
+            "replaces": replaces[k],
+            "launches": launches["slice_fast_kernels"][k],
+            "launches_by_path": {p: v[k] for p, v in launches.items()},
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

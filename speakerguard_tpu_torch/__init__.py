@@ -10,7 +10,12 @@ tensors; on CPU tensors each wrapper runs its plain PyTorch version.
 
 Precision: the exact JAX path is float32 throughout.  TF32 would silently
 lower float32 matmuls and convolutions on the card to ~10 mantissa bits, so
-importing this package turns it off for both cuBLAS and cuDNN.
+importing this package turns it off for both cuBLAS and cuDNN.  The fast
+attack-gradient path multiplies bf16 operands; JAX's
+``preferred_element_type=float32`` accumulates those products in float32,
+while cuBLAS may by default reduce a bf16 GEMM in reduced precision, so
+importing this package also turns that off
+(``allow_bf16_reduced_precision_reduction``).
 """
 
 import torch
@@ -19,6 +24,7 @@ __version__ = "0.1.0"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

@@ -3,8 +3,10 @@
 Port of speakerguard_tpu/attacks/gradient.py (reference attack/FGSM.py /
 PGD.py / CWinf.py).  Each iteration takes an EOT-averaged value-and-grad and
 the signed step + clip; the JAX package's ``lax.scan`` over iterations (and
-over random restarts) is a Python loop here.  The final success evaluation
-is exact (reference FGSM.py:44-47).
+over random restarts) is a Python loop here.  The iterations score through
+the model's fast attack-gradient path (``fast=True`` with the restart's
+``fast_context``, built once from the clean input); the final evaluation,
+which alone decides success, is exact (reference FGSM.py:44-47).
 
 Class relationships preserved: FGSM == PGD with max_iter=1, step=epsilon,
 global clip bounds; CWinf == PGD with Margin loss forced.
@@ -53,8 +55,10 @@ class PGD(Attack):
         """One restart: bounds, optional init noise, the iterations, the
         exact final evaluation."""
         model = self.model
-        eot_run = eot(lambda xx, g: model.score(xx, rng=g), self.loss_fn,
-                      model.threshold, self.EOT_size)
+        ctx = model.fast_context(x)  # dither-free, once per restart
+        eot_run = eot(lambda xx, g: model.score(xx, rng=g, fast=True,
+                                                fast_ctx=ctx),
+                      self.loss_fn, model.threshold, self.EOT_size)
         eot_ng = eot_no_grad(lambda xx, g: model.score(xx, rng=g),
                              self.loss_fn, model.threshold)
         lower, upper = self._bounds(x)

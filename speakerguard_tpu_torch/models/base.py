@@ -18,6 +18,8 @@ any feature level (reference model/defended_model.py).  Models are
 through ``score`` with ``torch.autograd``.
 """
 
+from dataclasses import dataclass
+
 import torch
 from torch import nn
 
@@ -26,13 +28,49 @@ from speakerguard_tpu_torch.utils.ranges import check_input_range
 NEG_INF = float("-inf")
 
 
-def fast_active() -> bool:
-    """Gate for the bf16 fast attack-gradient path.
+@dataclass(frozen=True)
+class FastPath:
+    """Configuration of the bf16 fast attack-gradient path.
 
-    The port has no fast path yet (bf16 weight copies, top-K Gaussian
-    selection and bf16 L come in a later slice), so every graph, attack
-    gradients included, runs the exact float32 path."""
-    return False
+    The JAX package reads process-wide ``SG_*`` variables; the port takes
+    this object instead and reads no environment variable.  Each default is
+    the JAX default on the accelerator.  Attack iterations score through
+    this path; every final success decision stays on the exact path.
+    Field, the JAX variable it mirrors (where speakerguard_tpu reads it):
+
+    enabled            SG_FAST (models/base.py fast_active): the path at all.
+    gmm_topk           SG_GMM_TOPK (models/gmm.py topk_k): components of the
+                       batch-shared Gaussian selection frozen per attack run
+                       (0 disables it).
+    stats_kernel       SG_GMM_STATS_PALLAS=1 (models/gmm.py
+                       _use_stats_pallas): the fused stats kernels
+                       (ops/gmm_stats.py here).  A top-K context takes
+                       precedence, so they run only with gmm_topk=0.
+    stats_t_chunk      SG_GMM_STATS_TCHUNK (models/gmm.py stats_t_chunk):
+                       frames per chunk of the unfused stats (0 = one shot).
+    ivec_l_bf16        SG_IVEC_L_BF16 (models/ivector.py ivec_l_bf16_active):
+                       the i-vector precision matrix L is assembled in bf16.
+    chol_bf16_updates  SG_CHOL_BF16 on the fast path (models/ivector.py
+                       _chol_factor): bf16 trailing updates in cholesky_rt.
+    dft_bf16           SG_DFT_FAST_PRECISION=default (models/base.py
+                       fast_dft_precision): the frontend's two DFT matmuls
+                       take bf16 operands with f32 accumulation.
+
+    The TPU-only knobs SG_GMM_PRECISION, SG_GMM_BWD_PRECISION, SG_CHOL_NB,
+    SG_CHOL_BTILE and SG_CHOL_BF16_IN have no counterpart: they set MXU pass
+    counts or VMEM tiles, and the port's exact path is float32 with TF32
+    off.  As in the JAX package, where the fast path computes in bf16 on the
+    accelerator it computes in float32 on the bf16-rounded weight copies on
+    the CPU (``models.gmm.fast_dot_dtype``).
+    """
+
+    enabled: bool = True
+    gmm_topk: int = 256
+    stats_kernel: bool = False
+    stats_t_chunk: int = 0
+    ivec_l_bf16: bool = True
+    chol_bf16_updates: bool = True
+    dft_bf16: bool = True
 
 
 def decide(scores: torch.Tensor, threshold: float):
@@ -75,24 +113,35 @@ class SRSModel(nn.Module):
         return next(self.buffers()).device
 
     # ---- ladder pieces (override) ----------------------------------------
-    def _raw(self, wav, rng=None):
+    def _raw(self, wav, rng=None, fast=False):
         raise NotImplementedError
 
     def _feat_step(self, feats, ori_flag):
         raise NotImplementedError
 
-    def _embedding_from_top(self, feats):
+    def _embedding_from_top(self, feats, fast=False, fast_ctx=None):
         raise NotImplementedError
 
     def _scores_from_emb(self, emb, enroll_embs=None):
         raise NotImplementedError
 
+    # ---- per-attack-run fast-path context ----
+    def fast_context(self, x):
+        """Per-run constants of the fast attack-gradient path, computed once
+        from the attack's clean input (iv_plda's frozen top-K Gaussian
+        selection).  Models without one return None; attacks pass the
+        result back through ``fast_ctx=``.  Never affects the exact path."""
+        return None
+
     # ---- uniform API ----
-    def compute_feat(self, x, flag=1, rng=None):
+    # fast=True marks an attack-gradient graph: models with a fast path
+    # (iv_plda) honor it, others ignore it.  make_decision has no such
+    # flag: decisions are always exact.
+    def compute_feat(self, x, flag=1, rng=None, fast=False):
         assert flag in self.allowed_flags and flag != 0
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         wav = check_input_range(as_batch_wav(x), range_type=self.range_type)
-        feats = self._raw(wav, rng=rng)
+        feats = self._raw(wav, rng=rng, fast=fast)
         for f in range(1, flag):
             feats = self._feat_step(feats, f)
         return feats
@@ -104,25 +153,28 @@ class SRSModel(nn.Module):
             feats = self._feat_step(feats, f)
         return feats
 
-    def embedding(self, x, flag=0, rng=None):
+    def embedding(self, x, flag=0, rng=None, fast=False, fast_ctx=None):
         assert flag in self.allowed_flags
         top = self.allowed_flags[-1]
         if flag == 0:
-            feats = self.compute_feat(x, flag=top, rng=rng)
+            feats = self.compute_feat(x, flag=top, rng=rng, fast=fast)
         elif flag < top:
             feats = self.comput_feat_from_feat(x, ori_flag=flag, des_flag=top)
         else:
             feats = x
-        return self._embedding_from_top(feats)
+        return self._embedding_from_top(feats, fast=fast, fast_ctx=fast_ctx)
 
     def forward(self, x, flag=0, return_emb=False, enroll_embs=None,
-                rng=None):
-        emb = self.embedding(x, flag=flag, rng=rng)
+                rng=None, fast=False, fast_ctx=None):
+        emb = self.embedding(x, flag=flag, rng=rng, fast=fast,
+                             fast_ctx=fast_ctx)
         scores = self._scores_from_emb(emb, enroll_embs=enroll_embs)
         return (scores, emb) if return_emb else scores
 
-    def score(self, x, flag=0, enroll_embs=None, rng=None):
-        return self.forward(x, flag=flag, enroll_embs=enroll_embs, rng=rng)
+    def score(self, x, flag=0, enroll_embs=None, rng=None, fast=False,
+              fast_ctx=None):
+        return self.forward(x, flag=flag, enroll_embs=enroll_embs, rng=rng,
+                            fast=fast, fast_ctx=fast_ctx)
 
     def make_decision(self, x, flag=0, enroll_embs=None, rng=None):
         scores = self.score(x, flag=flag, enroll_embs=enroll_embs, rng=rng)

@@ -5,6 +5,13 @@ wav -> MFCC -> delta -> CMVN -> Baum-Welch stats -> ivector -> LDA ->
 length-norm -> PLDA, batched and differentiable end to end.
 
 Feature flags (iv_plda.py:75-77): 0=wav, 1=raw MFCC, 2=+deltas, 3=CMVN.
+
+``IvPlda(params, fast=..., loglike_kernel=...)`` picks the paths: ``fast``
+configures the attack-gradient path (``models.base.FastPath``; None turns
+it on when the model's buffers lie on a CUDA device and off on the CPU, as
+the JAX package's SG_FAST=auto does per backend), and ``loglike_kernel``
+routes the exact path's GMM loglike through the fused kernel
+(ops/gmm_loglike.py; the JAX package's SG_GMM_PALLAS=1).
 """
 
 import math
@@ -17,7 +24,7 @@ from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.models import gmm as gmm_mod
 from speakerguard_tpu_torch.models import ivector as iv_mod
 from speakerguard_tpu_torch.models import plda as plda_mod
-from speakerguard_tpu_torch.models.base import SRSModel, NEG_INF
+from speakerguard_tpu_torch.models.base import FastPath, NEG_INF, SRSModel
 from speakerguard_tpu_torch.ops.cmvn import sliding_cmvn
 from speakerguard_tpu_torch.ops.delta import add_delta
 from speakerguard_tpu_torch.ops.kaldi_mfcc import IV_PLDA_MFCC, kaldi_mfcc
@@ -90,15 +97,47 @@ def process_emb(params: IvPldaParams, ivec: torch.Tensor) -> torch.Tensor:
                                       normalize_length=True)
 
 
-def embedding_from_cmvn(params: IvPldaParams,
-                        feats: torch.Tensor) -> torch.Tensor:
-    """(B, T, D) CMVN features -> (B, R) processed embeddings."""
+class IvFastContext(NamedTuple):
+    """Per-attack-run frozen top-K Gaussian selection: the shared GMM
+    selection plus the matching i-vector extractor slices."""
+    gmm: gmm_mod.GmmTopKContext
+    iv: iv_mod.IvectorTopK
+
+
+def make_fast_context(params: IvPldaParams, feats: torch.Tensor,
+                      k: int) -> IvFastContext | None:
+    """Shared top-K selection from (clean) CMVN features + extractor
+    slices.  None when selection is a no-op (K <= 0 or K >= C)."""
+    g = gmm_mod.make_topk_context(params.fgmm, feats, k)
+    if g is None:
+        return None
+    return IvFastContext(gmm=g,
+                         iv=iv_mod.make_topk_slices(params.extractor, g.sel))
+
+
+def embedding_from_cmvn(params: IvPldaParams, feats: torch.Tensor,
+                        fast: FastPath | None = None,
+                        topk_ctx: IvFastContext | None = None,
+                        loglike_kernel: bool = False) -> torch.Tensor:
+    """(B, T, D) CMVN features -> (B, R) processed embeddings.
+
+    ``fast`` (a FastPath; None = exact) runs the bf16 attack-gradient
+    variant of the GMM stats and i-vector extraction, restricted to
+    ``topk_ctx``'s frozen selection when given; scores drift at the bf16
+    level, so callers keep success decisions on the exact path.
+    ``loglike_kernel`` (exact path) routes the loglike through the fused
+    kernel."""
     if feats.shape[-1] != params.fgmm.dim:
         raise ValueError(
             f"feature dim {feats.shape[-1]} != UBM dim {params.fgmm.dim}; "
             "check num_ceps (features are num_ceps*3 after deltas)")
-    zeroth, first = gmm_mod.zeroth_first_stats(params.fgmm, feats)
-    ivec = iv_mod.extract_ivectors(params.extractor, zeroth, first)
+    zeroth, first = gmm_mod.zeroth_first_stats(
+        params.fgmm, feats, fast=fast,
+        topk_ctx=None if topk_ctx is None else topk_ctx.gmm,
+        loglike_kernel=loglike_kernel)
+    ivec = iv_mod.extract_ivectors(
+        params.extractor, zeroth, first, fast=fast,
+        topk=None if topk_ctx is None else topk_ctx.iv)
     return process_emb(params, ivec)
 
 
@@ -115,15 +154,19 @@ _GROUPS = {"fgmm": gmm_mod.FullGMMParams,
 
 
 class IvPlda(SRSModel):
-    """The parameters are registered as buffers (``fgmm__quad_proj``, ...)
-    so ``.to(device)`` moves them; ``params`` reassembles the tuples."""
+    """The parameters are registered as buffers (``fgmm__quad_proj``, ...,
+    the bf16 copies included where the tuples carry them) so ``.to(device)``
+    moves them; ``params`` reassembles the tuples."""
 
     allowed_flags = (0, 1, 2, 3)
     range_type = "origin"
 
     def __init__(self, params: IvPldaParams, model_file: str | None = None,
-                 threshold: float | None = None, mfcc_config=IV_PLDA_MFCC):
+                 threshold: float | None = None, mfcc_config=IV_PLDA_MFCC,
+                 fast: FastPath | None = None, loglike_kernel: bool = False):
         super().__init__()
+        self.fast = fast
+        self.loglike_kernel = loglike_kernel
         for group, cls in _GROUPS.items():
             sub = getattr(params, group)
             for field in cls._fields:
@@ -155,8 +198,23 @@ class IvPlda(SRSModel):
         self.z_norm_means = z_norm_means
         self.z_norm_stds = z_norm_stds
 
-    def _raw(self, wav, rng=None):
-        return kaldi_mfcc(wav, self.mfcc_config, rng=rng)
+    @property
+    def fast_path(self) -> FastPath | None:
+        """The fast path's configuration, or None when it is off: ``fast``
+        as given, and for ``fast=None`` the defaults on a CUDA device and
+        off on the CPU."""
+        fast = self.fast
+        if fast is None:
+            fast = FastPath(enabled=self.device.type == "cuda")
+        return fast if fast.enabled else None
+
+    def _fast_on(self, fast: bool) -> FastPath | None:
+        return self.fast_path if fast else None
+
+    def _raw(self, wav, rng=None, fast=False):
+        fp = self._fast_on(fast)
+        return kaldi_mfcc(wav, self.mfcc_config, rng=rng,
+                          fast_dft=fp is not None and fp.dft_bf16)
 
     def _feat_step(self, feats, ori_flag):
         if ori_flag == 1:
@@ -165,8 +223,25 @@ class IvPlda(SRSModel):
             return sliding_cmvn(feats)
         raise ValueError(ori_flag)
 
-    def _embedding_from_top(self, feats):
-        return embedding_from_cmvn(self.params, feats)
+    def _embedding_from_top(self, feats, fast=False, fast_ctx=None):
+        fp = self._fast_on(fast)
+        return embedding_from_cmvn(
+            self.params, feats, fast=fp,
+            topk_ctx=fast_ctx if fp is not None else None,
+            loglike_kernel=self.loglike_kernel)
+
+    def fast_context(self, x):
+        """The frozen batch-shared top-K Gaussian selection of an attack
+        run (``FastPath.gmm_topk``), from the run's clean input on the fast
+        frontend without dither; None when the fast path or the selection
+        is off."""
+        fp = self.fast_path
+        if fp is None or fp.gmm_topk <= 0:
+            return None
+        with torch.no_grad():
+            feats = self.compute_feat(x, flag=self.allowed_flags[-1],
+                                      fast=True)
+            return make_fast_context(self.params, feats, fp.gmm_topk)
 
     def _scores_from_emb(self, emb, enroll_embs=None):
         enroll = enroll_embs if enroll_embs is not None else self.enroll_embs

@@ -1,6 +1,6 @@
 """i-vector extractor (total-variability T-matrix), batched.
 
-Port of the exact path of speakerguard_tpu/models/ivector.py (reference
+Port of speakerguard_tpu/models/ivector.py (reference
 model/_iv_plda/ivector_extract.py).  The per-utterance posterior-precision
 system
 
@@ -16,7 +16,11 @@ is evaluated with two load-time precomputations on the device:
 
 The SPD solve factors L with the hand-written batched Cholesky
 (ops/chol.py ``cholesky_rt``) and differentiates by the implicit function
-theorem, reusing the forward's factor in the backward.
+theorem, reusing the forward's factor in the backward.  The fast
+attack-gradient path (``FastPath``) reads bf16 copies of quad_packed and
+proj, optionally restricted to a frozen top-K component selection
+(``IvectorTopK``), assembles L in bf16 (``ivec_l_bf16``) and factors it
+with bf16 trailing updates (``chol_bf16_updates``).
 """
 
 import functools
@@ -26,6 +30,8 @@ import numpy as np
 import torch
 
 from speakerguard_tpu_torch import resolve_device
+from speakerguard_tpu_torch.models.base import FastPath
+from speakerguard_tpu_torch.models.gmm import dot_f32, fast_dot_dtype
 from speakerguard_tpu_torch.ops.chol import cholesky_rt
 from speakerguard_tpu_torch.ops.trsv import triangular_solve_vec
 
@@ -36,6 +42,9 @@ class IvectorExtractorParams(NamedTuple):
     offset: torch.Tensor            # scalar prior offset
     quad_packed: torch.Tensor       # (C, IV(IV+1)/2) upper-tri of T^T S^-1 T
     proj: torch.Tensor              # (C, IV, D)
+    # bf16 copies for the fast path (None: cast when needed)
+    quad_packed_bf16: torch.Tensor | None = None
+    proj_bf16: torch.Tensor | None = None
 
     @property
     def num_gaussians(self):
@@ -51,9 +60,12 @@ class IvectorExtractorParams(NamedTuple):
 
 
 def build_extractor(extractor_matrix: np.ndarray, sigma_inv: np.ndarray,
-                    offset: float, device=None) -> IvectorExtractorParams:
+                    offset: float, device=None,
+                    fast_copies: bool | None = None
+                    ) -> IvectorExtractorParams:
     """Load-time precompute of ``proj`` and ``quad_packed`` in float32 on the
-    device (~90 GFLOP at C=2048, IV=600)."""
+    device (~90 GFLOP at C=2048, IV=600).  ``fast_copies`` (default: on a
+    CUDA device) also stores their bf16 copies."""
     dev = resolve_device(device)
     m = torch.as_tensor(np.asarray(extractor_matrix, np.float32), device=dev)
     s = torch.as_tensor(np.asarray(sigma_inv, np.float32), device=dev)
@@ -66,10 +78,25 @@ def build_extractor(extractor_matrix: np.ndarray, sigma_inv: np.ndarray,
         torch.einsum("cie,cej->cij", proj[g:g + 256], m[g:g + 256])[:, rows,
                                                                      cols]
         for g in range(0, m.shape[0], 256)])
+    if fast_copies is None:
+        fast_copies = dev.type == "cuda"
+    bf16 = torch.bfloat16
     return IvectorExtractorParams(
         extractor_matrix=m, sigma_inv=s,
         offset=torch.tensor(float(offset), dtype=torch.float32, device=dev),
-        quad_packed=quad_packed, proj=proj)
+        quad_packed=quad_packed, proj=proj,
+        quad_packed_bf16=quad_packed.to(bf16) if fast_copies else None,
+        proj_bf16=proj.to(bf16) if fast_copies else None)
+
+
+def _fast_quad(params: IvectorExtractorParams) -> torch.Tensor:
+    q = params.quad_packed_bf16
+    return q if q is not None else params.quad_packed.to(torch.bfloat16)
+
+
+def _fast_proj(params: IvectorExtractorParams) -> torch.Tensor:
+    p = params.proj_bf16
+    return p if p is not None else params.proj.to(torch.bfloat16)
 
 
 def random_extractor(rng: np.random.Generator, num_gaussians: int = 2048,
@@ -91,58 +118,146 @@ class _SpdSolve(torch.autograd.Function):
     """x = A^-1 rhs.  The backward (grad_rhs = A^-1 g, grad_A = -outer(
     grad_rhs, x)) needs a second solve against the same matrix, so the
     forward saves the Cholesky FACTOR and the backward is two triangular
-    solves: exactly one factorization per forward + backward."""
+    solves: exactly one factorization per forward + backward.  A bf16 A
+    (the fast path's bf16 L) is read by the kernel as it is and receives a
+    bf16 cotangent."""
 
     @staticmethod
-    def forward(ctx, l_mat, rhs):
-        factor = cholesky_rt(l_mat)
+    def forward(ctx, l_mat, rhs, bf16_updates):
+        factor = cholesky_rt(l_mat, bf16_updates=bf16_updates)
         x = _chol_apply(factor, rhs)
         ctx.save_for_backward(factor, x)
+        ctx.l_dtype = l_mat.dtype
         return x
 
     @staticmethod
     def backward(ctx, g):
         factor, x = ctx.saved_tensors
         u = _chol_apply(factor, g)
-        return -u[:, :, None] * x[:, None, :], u
+        return (-u[:, :, None] * x[:, None, :]).to(ctx.l_dtype), u, None
 
 
-def spd_solve(l_mat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def spd_solve(l_mat: torch.Tensor, rhs: torch.Tensor,
+              bf16_updates: bool = False) -> torch.Tensor:
     """Batched SPD solve x = A^-1 rhs via Cholesky.  l_mat: (B, N, N)
-    symmetric positive definite; rhs: (B, N)."""
-    return _SpdSolve.apply(l_mat, rhs)
+    symmetric positive definite, float32 or bfloat16; rhs: (B, N)."""
+    return _SpdSolve.apply(l_mat, rhs, bf16_updates)
 
 
 @functools.lru_cache(maxsize=None)
-def _sym_index(iv: int, device: torch.device) -> torch.Tensor:
-    """Flat (IV*IV,) index of each full-matrix entry into the packed upper
-    triangle (np.triu_indices order), on the device, built once."""
+def _sym_indices(iv: int, device: torch.device):
+    """(IV*IV,) index of each full-matrix entry into the packed upper
+    triangle (np.triu_indices order), the triangle's (rows, cols), and its
+    off-diagonal mask, on the device, built once."""
     rows, cols = np.triu_indices(iv)
     idx = np.zeros((iv, iv), np.int64)
     idx[rows, cols] = np.arange(len(rows))
     idx[cols, rows] = np.arange(len(rows))
-    return torch.as_tensor(idx.ravel(), device=device)
+    return tuple(torch.as_tensor(a, device=device) for a in
+                 (idx.ravel(), rows, cols, (rows != cols).astype(np.float32)))
+
+
+class _SymUnpack(torch.autograd.Function):
+    """Packed upper triangle (B, P) -> full symmetric (B, IV, IV).  One
+    gather forward; the backward is two gathers (cot[r, c] + cot[c, r] off
+    the diagonal) instead of a gather's scatter-add (JAX ivector.py
+    _sym_unpack), kept in the primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, packed, iv):
+        ctx.iv = iv
+        idx = _sym_indices(iv, packed.device)[0]
+        return packed[:, idx].reshape(-1, iv, iv)
+
+    @staticmethod
+    def backward(ctx, cot):
+        _, rows, cols, offdiag = _sym_indices(ctx.iv, cot.device)
+        up = cot[:, rows, cols]
+        lo = cot[:, cols, rows]
+        return (up + lo * offdiag).to(cot.dtype), None
 
 
 def sym_unpack(packed: torch.Tensor, iv: int) -> torch.Tensor:
-    """Packed upper triangle (B, P) -> full symmetric (B, IV, IV)."""
-    return packed[:, _sym_index(iv, packed.device)].reshape(-1, iv, iv)
+    return _SymUnpack.apply(packed, iv)
+
+
+class _QuadContract(torch.autograd.Function):
+    """Packed L = zeroth @ quad_packed.  The exact path: float32 both ways
+    (JAX ivector.py _quad_contract).  fast: the bf16 copy with f32
+    accumulation; out16 also rounds the packed L to bf16 at the output
+    (_quad_contract_fast16), else it stays f32 (_quad_contract_fast).  The
+    zeroth cotangent is float32; quad_packed gets none."""
+
+    @staticmethod
+    def forward(ctx, zeroth, quad, fast, out16):
+        ctx.save_for_backward(quad)
+        ctx.fast = fast
+        if not fast:
+            return zeroth @ quad
+        dt = fast_dot_dtype(zeroth.device)
+        if out16 and dt == torch.bfloat16:
+            return zeroth.to(dt) @ quad.to(dt)
+        out = dot_f32(zeroth.to(dt), quad.to(dt))
+        return out.to(torch.bfloat16) if out16 else out
+
+    @staticmethod
+    def backward(ctx, cot):
+        (quad,) = ctx.saved_tensors
+        if not ctx.fast:
+            return cot @ quad.T, None, None, None
+        dt = fast_dot_dtype(cot.device)
+        return dot_f32(cot.to(dt), quad.to(dt).T), None, None, None
+
+
+class IvectorTopK(NamedTuple):
+    """Extractor tensors sliced to a frozen shared component selection
+    (gmm.GmmTopKContext.sel) for one attack run."""
+    quad_sel: torch.Tensor  # (K, IV(IV+1)/2) bf16
+    proj_sel: torch.Tensor  # (K, IV, D) bf16
+
+
+@torch.no_grad()
+def make_topk_slices(params: IvectorExtractorParams,
+                     sel: torch.Tensor) -> IvectorTopK:
+    """The (K, .) bf16 extractor slices of a shared selection, once per
+    attack run."""
+    return IvectorTopK(quad_sel=_fast_quad(params).index_select(0, sel),
+                       proj_sel=_fast_proj(params).index_select(0, sel))
 
 
 def extract_ivectors(params: IvectorExtractorParams, zeroth: torch.Tensor,
-                     first: torch.Tensor) -> torch.Tensor:
+                     first: torch.Tensor, fast: FastPath | None = None,
+                     topk: IvectorTopK | None = None) -> torch.Tensor:
     """zeroth: (B, C), first: (B, C, D) -> ivectors (B, IV).
 
-    Matches reference ivector_extract.py:98-114 (Extractivector), batched."""
+    Matches reference ivector_extract.py:98-114 (Extractivector), batched.
+    ``fast`` (a FastPath; None = exact) uses the bf16 parameter copies, or
+    with ``topk`` the slices matching SELECTED-space stats (B, K) /
+    (B, K, D).  The factorization reads the (bf16 or f32) L as it is."""
+    if topk is not None and fast is None:
+        raise ValueError("topk slices are a fast-path-only knob")
     iv = params.ivector_dim
-    l_packed = zeroth @ params.quad_packed
-    linear = torch.einsum("cid,bcd->bi", params.proj, first)
+    if fast is None:
+        l_packed = _QuadContract.apply(zeroth, params.quad_packed, False,
+                                       False)
+        linear = torch.einsum("cid,bcd->bi", params.proj, first)
+    else:
+        quad, proj = ((topk.quad_sel, topk.proj_sel) if topk is not None
+                      else (_fast_quad(params), _fast_proj(params)))
+        l_packed = _QuadContract.apply(zeroth, quad, True, fast.ivec_l_bf16)
+        dt = fast_dot_dtype(zeroth.device)
+        k = proj.shape[0]
+        # einsum("cid,bcd->bi") as one (B, K*D) @ (K*D, IV) product
+        linear = dot_f32(first.to(dt).reshape(first.shape[0], -1),
+                         proj.to(dt).permute(0, 2, 1).reshape(k * proj.shape[2],
+                                                              iv))
     eye = torch.eye(iv, dtype=l_packed.dtype, device=l_packed.device)
     l_mat = sym_unpack(l_packed, iv) + eye
     offset = torch.zeros_like(linear[0])
     offset[0] = params.offset
     # L is SPD by construction (I + a sum of PSD terms)
-    ivec = spd_solve(l_mat, linear + offset)
+    ivec = spd_solve(l_mat, linear + offset,
+                     bf16_updates=fast is not None and fast.chol_bf16_updates)
     return ivec - offset
 
 

@@ -58,3 +58,34 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+def check_rc(rc: int, what: str):
+    """Raise unless a C entry point's cudaGetLastError() code is 0."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+class KernelWrapper:
+    """Base of the kernel wrappers: ``launches`` counts kernel launches
+    (CUDA tensors), ``plain_calls`` the plain-version runs (CPU tensors)."""
+
+    name = "kernel"
+
+    def __init__(self):
+        self.reset_counts()
+
+    def reset_counts(self):
+        self.launches = 0
+        self.plain_calls = 0
+
+    def route(self, t) -> bool:
+        """True when ``t`` is a CUDA tensor (launch), False on the CPU
+        (plain version, counted here); raises on any other device."""
+        if t.device.type == "cpu":
+            self.plain_calls += 1
+            return False
+        if t.device.type != "cuda":
+            raise ValueError(f"{self.name} runs on cuda or cpu, not "
+                             f"{t.device}")
+        return True

@@ -23,6 +23,8 @@ import functools
 
 import torch
 
+from speakerguard_tpu_torch.ops._build import KernelWrapper, check_rc
+
 NB = 32  # panel rows; the kernel reports its own and _kernel() checks it
 
 
@@ -101,28 +103,16 @@ def _kernel():
     return fn
 
 
-class _CholeskyRT:
-    """``cholesky_rt(a, bf16_updates=False) -> R``, counting its calls:
-    ``launches`` counts kernel launches (CUDA tensors), ``plain_calls`` the
-    plain-version runs (CPU tensors)."""
+class _CholeskyRT(KernelWrapper):
+    """``cholesky_rt(a, bf16_updates=False) -> R``, counting its calls."""
 
-    def __init__(self):
-        self.launches = 0
-        self.plain_calls = 0
-
-    def reset_counts(self):
-        self.launches = 0
-        self.plain_calls = 0
+    name = "cholesky_rt"
 
     def __call__(self, a: torch.Tensor,
                  bf16_updates: bool = False) -> torch.Tensor:
         _check(a)
-        if a.device.type == "cpu":
-            self.plain_calls += 1
+        if not self.route(a):
             return cholesky_rt_plain(a, bf16_updates)
-        if a.device.type != "cuda":
-            raise ValueError(f"cholesky_rt runs on cuda or cpu, not "
-                             f"{a.device}")
         fn = _kernel()
         a = a.contiguous()
         b, n, _ = a.shape
@@ -133,9 +123,7 @@ class _CholeskyRT:
             rc = fn(a.data_ptr(), int(a.dtype == torch.bfloat16),
                     work.data_ptr(), out.data_ptr(), b, n, int(bf16_updates),
                     stream)
-        if rc != 0:
-            raise RuntimeError(f"cholesky_rt kernel launch failed: CUDA "
-                               f"error {rc}")
+        check_rc(rc, "cholesky_rt")
         self.launches += 1
         return out
 

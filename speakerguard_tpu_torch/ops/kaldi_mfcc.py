@@ -10,9 +10,14 @@ Port of speakerguard_tpu/ops/kaldi_mfcc.py (reference model/iv_plda.py:
 The power spectrum is a real DFT written as two matmuls with the
 (linear) preemphasis and window folded into the DFT matrices at float64
 precompute time, exactly as the JAX package does, so both packages round
-the same way.  The JAX package gives the framing gather and the DFT power
-hand-written VJPs to dodge TPU scatter cost; here plain autograd computes
-the same gradient (the tests hold the two against each other).
+the same way; its VJP is the JAX package's hand-written one.  The framing
+gather's backward is still autograd's (the JAX package's overlap-add VJP
+is not ported yet; the tests hold the two gradients against each other).
+
+``fast_dft=True`` (attack-gradient graphs, ``FastPath.dft_bf16``) runs the
+two DFT matmuls with bf16 operands and float32 accumulation on the card,
+the JAX package's Precision.DEFAULT on the accelerator; on the CPU they
+stay float32, as JAX's DEFAULT is there.  The exact path is float32.
 
 Parameter set pinned to the reference configuration:
   sample_frequency=16000, frame_shift=10ms, frame_length=25ms,
@@ -33,6 +38,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from speakerguard_tpu_torch.models.gmm import dot_f32, fast_dot_dtype
 
 EPSILON = 1.1920928955078125e-07  # float32 eps, matches Kaldi's epsilon
 
@@ -202,17 +209,36 @@ def _consts(cfg: MfccConfig, device: torch.device) -> dict:
             "lifter": dev(lifter_coeffs(cfg))}
 
 
-def _power(frames: torch.Tensor, cos_t: torch.Tensor,
-           sin_t: torch.Tensor) -> torch.Tensor:
-    re = frames @ cos_t
-    im = -(frames @ sin_t)
-    return re ** 2 + im ** 2
+class _Power(torch.autograd.Function):
+    """|DFT|^2 of the frames with the two DFT matmuls' operands in
+    ``dtype`` (f32 accumulation) both ways, under the JAX package's hand
+    VJP (kaldi_mfcc.py _rfft_power): d|X_k|^2/df_j = 2 (re_k cos_kj -
+    im_k sin_kj)."""
+
+    @staticmethod
+    def forward(ctx, frames, cos_t, sin_t, dtype):
+        f = frames.to(dtype)
+        re = dot_f32(f, cos_t.to(dtype))
+        im = -dot_f32(f, sin_t.to(dtype))
+        ctx.save_for_backward(re, im, cos_t, sin_t)
+        ctx.dtype = dtype
+        return re ** 2 + im ** 2
+
+    @staticmethod
+    def backward(ctx, cot):
+        re, im, cos_t, sin_t = ctx.saved_tensors
+        dt = ctx.dtype
+        a = dot_f32((cot * re).to(dt), cos_t.T.to(dt))
+        b = dot_f32((cot * im).to(dt), sin_t.T.to(dt))
+        return 2.0 * (a - b), None, None, None
 
 
 def kaldi_mfcc(wav: torch.Tensor, cfg: MfccConfig = IV_PLDA_MFCC,
-               rng: torch.Generator | None = None) -> torch.Tensor:
+               rng: torch.Generator | None = None,
+               fast_dft: bool = False) -> torch.Tensor:
     """Batched Kaldi MFCC.  wav: (B, L) float32 in the *origin* (int16)
-    domain.  Returns (B, T, num_ceps)."""
+    domain.  Returns (B, T, num_ceps).  ``fast_dft``: the DFT matmuls in
+    the fast dtype (attack-gradient graphs only)."""
     if wav.ndim != 2:
         raise ValueError("expect (B, L)")
     dev = wav.device
@@ -232,7 +258,8 @@ def kaldi_mfcc(wav: torch.Tensor, cfg: MfccConfig = IV_PLDA_MFCC,
             torch.sum(frames * frames, dim=-1), min=EPSILON))
 
     # preemphasis + window are linear: folded into the DFT matrices
-    power = _power(frames, *consts["dft"])
+    power = _Power.apply(frames, *consts["dft"],
+                         fast_dot_dtype(dev) if fast_dft else torch.float32)
 
     mel = power @ consts["mel_t"]
     mel = torch.log(torch.clamp(mel, min=EPSILON))

@@ -34,6 +34,21 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# the modules of each slice, named so that a file moved out of the package
+# cannot silently drop out of the checks above
+SLICE_MODULES = [
+    "ops/chol.py", "ops/trsv.py", "models/ivector.py", "models/gmm.py",
+    "models/iv_plda.py", "models/base.py", "ops/kaldi_mfcc.py",
+    "attacks/gradient.py", "adaptive/eot.py", "convert.py",
+    "ops/gmm_loglike.py", "ops/gmm_stats.py", "ops/_build.py",
+]
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_slice_module_is_checked(rel):
+    assert ROOT / "speakerguard_tpu_torch" / rel in PORT_FILES
+
+
 def test_every_port_module_imports_on_cpu():
     for path in PORT_FILES:
         rel = path.relative_to(ROOT).with_suffix("")
