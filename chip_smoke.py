@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile DIR   # also a torch.profiler table of
                                           # one PGD iteration of each slice,
                                           # written to DIR/profile_<slice>.txt
+    python3 chip_smoke.py --rounds N      # also N rounds of PGD-10 on the
+                                          # three FastPath() slices in turn
 
 Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi); exits non-zero
@@ -17,8 +19,11 @@ Phases, one JSON line each:
               times of the kernel, the plain version and one PyTorch library
               call, and the roofline bound.  cholesky_rt on a diagonally
               dominant and an i-vector-shaped input (also the blocked
-              residual and strictly-lower zeros); fused_loglike, stats_fwd
-              and stats_bwd (the latter on the posts16 stats_fwd produced).
+              residual and strictly-lower zeros); cholesky_rt_dinv (R equal
+              to cholesky_rt's, dinv_t inverting R's blocks, pad blocks
+              identity); chol_solve (against plain and float64);
+              fused_loglike, stats_fwd and stats_bwd (the latter on the
+              posts16 stats_fwd produced).
   4. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
               R=200, weights from a numpy seed), 10 enrolled speakers, task
               CSI-E, 64 utterances of 3 s; make_decision, then PGD (10
@@ -34,13 +39,23 @@ Phases, one JSON line each:
               exact evaluation (2), cholesky_rt 12; no plain call anywhere.
   6. slice_fast_default  the same run with FastPath() (top-K 256, the
               unfused bf16 stats): cholesky_rt 12.
-  7. kernels  one line listing every ported kernel.
+  7. slice_chol_dinv  FastPath() with spd_solver="cholesky_rt_dinv":
+              cholesky_rt_dinv 12 (the backward reuses factor and dinv_t),
+              cholesky_rt 0.
+  8. slice_chol_solve  FastPath() with spd_solver="chol_solve": chol_solve
+              22 (forward and backward of each iteration, and the two exact
+              evaluations), cholesky_rt 0.
+  9. rounds   (--rounds N) ms per PGD iteration of slice_fast_default,
+              slice_chol_dinv and slice_chol_solve, N rounds, the order
+              rotated each round: the three differ only in the SPD solver.
+ 10. kernels  one line listing every ported kernel.
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -81,13 +96,15 @@ def parse_ms(text):
     raise ValueError(f"unknown time unit in {text!r}")
 
 
-def chol_bound_ms(b, n, in_bytes, bf16_updates, nb):
-    """Least time for the factorization on this card: the upper triangle of
-    each input read once and the f32 factor written once, against N^3/3
-    flops per matrix (the trailing-update share at the bf16 rate when its
-    operands are bf16, the pivot steps at the f32 rate)."""
-    byte_ms = (b * (n * (n + 1) / 2 * in_bytes + n * n * 4)
-               / HBM_BYTES_PER_S * 1e3)
+def _bound(byte_ms, op_ms):
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms
+                                 else "operations")
+
+
+def _chol_op_ms(b, n, bf16_updates, nb):
+    """The factorization's N^3/3 flops per matrix on this card: the
+    trailing-update share at the bf16 rate when its operands are bf16, the
+    pivot steps at the f32 rate."""
     total = n ** 3 / 3.0
     panel = 0.0   # flops of the sequential pivot steps inside the panels
     for k0 in range(0, n, nb):
@@ -96,11 +113,40 @@ def chol_bound_ms(b, n, in_bytes, bf16_updates, nb):
             panel += 2.0 * (p - j - 1) * (n - k0 - j - 1) + (n - k0 - j)
     trailing = max(total - panel, 0.0)
     if bf16_updates:
-        op_ms = b * (panel / F32_FLOPS + trailing / BF16_FLOPS) * 1e3
-    else:
-        op_ms = b * total / F32_FLOPS * 1e3
-    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms
-                                 else "operations")
+        return b * (panel / F32_FLOPS + trailing / BF16_FLOPS) * 1e3
+    return b * total / F32_FLOPS * 1e3
+
+
+def chol_bound_ms(b, n, in_bytes, bf16_updates, nb):
+    """Least time for the factorization on this card: the upper triangle of
+    each input read once and the f32 factor written once, against N^3/3
+    flops per matrix."""
+    byte_ms = (b * (n * (n + 1) / 2 * in_bytes + n * n * 4)
+               / HBM_BYTES_PER_S * 1e3)
+    return _bound(byte_ms, _chol_op_ms(b, n, bf16_updates, nb))
+
+
+def chol_dinv_bound_ms(b, n, in_bytes, bf16_updates, nb, m=128):
+    """cholesky_rt_dinv: the factorization's bytes plus dinv_t written once
+    (K = ceil(N/m) blocks of m x m f32), its flops plus the inversion of
+    each diagonal block at the f32 rate, (s^3 - s)/3 + s flops for a block
+    of s real rows (the identity on the pad diagonal takes none)."""
+    k = -(-n // m)
+    byte_ms = (b * (n * (n + 1) / 2 * in_bytes + n * n * 4 + k * m * m * 4)
+               / HBM_BYTES_PER_S * 1e3)
+    inv = sum((s ** 3 - s) / 3.0 + s
+              for s in (min(m, n - i * m) for i in range(k)))
+    return _bound(byte_ms, _chol_op_ms(b, n, bf16_updates, nb)
+                  + b * inv / F32_FLOPS * 1e3)
+
+
+def chol_solve_bound_ms(b, n, nb):
+    """chol_solve (float32): the upper triangle of A and v read once, x
+    written once; the factorization's flops plus N^2 for carrying v
+    through the sweep and N^2 for the back-substitution."""
+    byte_ms = b * (n * (n + 1) / 2 * 4 + 2 * n * 4) / HBM_BYTES_PER_S * 1e3
+    return _bound(byte_ms, _chol_op_ms(b, n, False, nb)
+                  + b * 2.0 * n * n / F32_FLOPS * 1e3)
 
 
 def spd_batch(torch, kind, b, n, seed, dtype):
@@ -181,6 +227,148 @@ def phase_kernels(torch, chol):
     return main
 
 
+def _inv_times_d_err(torch, r, dinv_t, m=128):
+    """max |dinv_t[:, i]^T D_i - I| over R's diagonal blocks padded with
+    identity (the JAX package's check, tests/test_pallas.py:264-272), and
+    whether the pad rows and columns of the last block hold exactly the
+    identity."""
+    b, n = r.shape[0], r.shape[-1]
+    k = dinv_t.shape[1]
+    eye = torch.eye(m, device=r.device)
+    err = 0.0
+    for i in range(k):
+        s = min(m, n - i * m)
+        d = eye.repeat(b, 1, 1)
+        d[:, :s, :s] = r[:, i * m:i * m + s, i * m:i * m + s]
+        err = max(err, float((dinv_t[:, i].mT @ d - eye).abs().max()))
+    s = n - (k - 1) * m
+    last = dinv_t[:, k - 1]
+    pad_ok = bool(torch.equal(last[:, s:, s:], eye[s:, s:].expand(
+        b, m - s, m - s)) and torch.all(last[:, s:, :s] == 0)
+        and torch.all(last[:, :s, s:] == 0))
+    return err, pad_ok
+
+
+def phase_chol_dinv(torch, chol):
+    """cholesky_rt_dinv against cholesky_rt and its plain version.  Each
+    case holds R to the cholesky_rt kernel's R on the same input and flags
+    with torch.equal (the same launches compute it); dinv_t to the JAX
+    package's bar, max |dinv_t[:, i]^T D_i - I| <= 5e-5; dinv_t to the plain
+    inversion of the kernel's own R at 1e-5 of max |dinv_t| (f32 sums of
+    up to 128 products in another order); the pad blocks to the identity,
+    exactly.  Returns the main-shape record."""
+    cases = [  # (name, input, B, N, dtype, bf16_updates)
+        ("main_f32", "dominant", 64, 600, torch.float32, False),
+        ("bf16_input", "dominant", 64, 600, torch.bfloat16, False),
+        ("bf16_updates", "dominant", 64, 600, torch.float32, True),
+        ("occupancy_f32", "occupancy", 64, 600, torch.float32, False),
+        ("odd_129", "dominant", 3, 129, torch.float32, False),
+        ("n_1", "dominant", 2, 1, torch.float32, False),
+        ("n_256", "occupancy", 2, 256, torch.float32, False),
+    ]
+    main = None
+    for name, kind, b, n, dtype, upd in cases:
+        a = spd_batch(torch, kind, b, n, seed=n, dtype=dtype)
+        r, dinv_t = chol.cholesky_rt_dinv(a, bf16_updates=upd)
+        r_rt = chol.cholesky_rt(a, bf16_updates=upd)
+        torch.cuda.synchronize()
+        same_r = bool(torch.equal(r, r_rt))
+        inv_err, pad_ok = _inv_times_d_err(torch, r, dinv_t)
+        want = chol.diag_block_inverses_t(r)
+        abs_err = float((dinv_t - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        rec = {"phase": "kernel", "kernel": "cholesky_rt_dinv", "case": name,
+               "input": kind, "shape": [b, n, n],
+               "dtype": str(dtype).split(".")[-1], "bf16_updates": upd,
+               "r_equal_to_cholesky_rt": same_r,
+               "inv_times_d_minus_i": inv_err, "tolerance_inv": 5e-5,
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "tolerance_vs_plain": 1e-5, "pad_blocks_identity": pad_ok}
+        if name == "main_f32":
+            main = rec
+            # the library's two calls: a factor of A padded to K*128 with
+            # identity, then one batched triangular solve of its diagonal
+            # blocks against I
+            k = dinv_t.shape[1]
+            a_pad = torch.eye(k * 128, device="cuda").repeat(b, 1, 1)
+            a_pad[:, :n, :n] = a
+            eye = torch.eye(128, device="cuda").expand(b, k, 128, 128)
+
+            def library():
+                rp = torch.linalg.cholesky(a_pad, upper=True)
+                st = rp.stride()   # block i starts 128 i rows and columns in
+                blocks = rp.as_strided((b, k, 128, 128),
+                                       (st[0], 128 * (st[1] + st[2]), st[1],
+                                        st[2]))
+                return torch.linalg.solve_triangular(blocks, eye, upper=True)
+
+            rec["ms"] = cuda_ms(lambda: chol.cholesky_rt_dinv(a, upd), 3, 20)
+            rec["plain_ms"] = cuda_ms(
+                lambda: chol.cholesky_rt_dinv_plain(a, upd), 1, 3)
+            rec["library_ms"] = cuda_ms(library, 3, 20)
+            rec["library_call"] = (
+                "torch.linalg.cholesky(upper=True) of A padded to "
+                f"{k * 128} with identity, then one batched "
+                "torch.linalg.solve_triangular of its diagonal blocks "
+                "against I: two calls (no single call computes the "
+                "function)")
+            rec["bound_ms"], rec["bound_by"] = chol_dinv_bound_ms(
+                b, n, a.element_size(), upd, chol.NB)
+        emit(rec)
+        if not (same_r and inv_err <= 5e-5 and rel_err <= 1e-5 and pad_ok):
+            raise RuntimeError(f"cholesky_rt_dinv {name}: {rec}")
+    return main
+
+
+def phase_chol_solve(torch, chol):
+    """chol_solve against its plain version at 1e-5 of max |x| (f32 sums
+    in another order in the trailing updates and in the back-substitution's
+    matvecs) and against a float64 solve at the JAX package's bar, rtol
+    1e-3 and atol 1e-4 (tests/test_pallas.py:214).  Returns the main-shape
+    record."""
+    main = None
+    for name, kind, b, n in [("main_dominant", "dominant", 64, 600),
+                             ("occupancy", "occupancy", 64, 600),
+                             ("odd_129", "dominant", 3, 129),
+                             ("n_1", "dominant", 2, 1)]:
+        a = spd_batch(torch, kind, b, n, seed=n + 1, dtype=torch.float32)
+        g = torch.Generator(device="cuda").manual_seed(n + 2)
+        v = torch.randn((b, n), generator=g, device="cuda")
+        x = chol.chol_solve(a, v)
+        torch.cuda.synchronize()
+        want = chol.chol_solve_plain(a, v)
+        abs_err = float((x - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        x64 = torch.linalg.solve(a.double(), v.double()[..., None])[..., 0]
+        f64_ok = bool(torch.allclose(x.double(), x64, rtol=1e-3, atol=1e-4))
+        rec = {"phase": "kernel", "kernel": "chol_solve", "case": name,
+               "input": kind, "shape": [b, n, n], "max_abs_err": abs_err,
+               "max_rel_err": rel_err, "tolerance_vs_plain": 1e-5,
+               "max_abs_err_vs_f64": float((x.double() - x64).abs().max()),
+               "within_f64_bar": f64_ok,
+               "tolerance_vs_f64": "rtol 1e-3, atol 1e-4"}
+        if name == "main_dominant":
+            main = rec
+            v3 = v[..., None]
+            rec["ms"] = cuda_ms(lambda: chol.chol_solve(a, v), 3, 20)
+            rec["plain_ms"] = cuda_ms(lambda: chol.chol_solve_plain(a, v),
+                                      1, 3)
+            rec["library_ms"] = cuda_ms(lambda: torch.linalg.solve(a, v3),
+                                        3, 20)
+            rec["library_call"] = "torch.linalg.solve(A, v)"
+            rec["library_two_calls_ms"] = cuda_ms(
+                lambda: torch.cholesky_solve(
+                    v3, torch.linalg.cholesky(a), upper=False), 3, 20)
+            rec["library_two_calls"] = ("torch.linalg.cholesky, then "
+                                        "torch.cholesky_solve")
+            rec["bound_ms"], rec["bound_by"] = chol_solve_bound_ms(
+                b, n, chol.NB)
+        emit(rec)
+        if not (rel_err <= 1e-5 and f64_ok):
+            raise RuntimeError(f"chol_solve {name}: {rec}")
+    return main
+
+
 def phase_small_reference(torch):
     """The card's scores against the CPU plain path on a small model built
     from the same numpy seed (the port's own reference)."""
@@ -216,10 +404,8 @@ def gmm_bounds(b, t, d, c):
     f = d + p
 
     def bound(nbytes, bf16_flops, f32_flops):
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = (bf16_flops / BF16_FLOPS + f32_flops / F32_FLOPS) * 1e3
-        return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms
-                                     else "operations")
+        return _bound(nbytes / HBM_BYTES_PER_S * 1e3,
+                      (bf16_flops / BF16_FLOPS + f32_flops / F32_FLOPS) * 1e3)
 
     return {
         # x, quad_proj, gconsts in; loglike out.  aug products + the GEMM
@@ -359,9 +545,11 @@ def phase_gmm_kernels(torch):
     return main
 
 
-def build_model(torch, params, fast, loglike_kernel, enroll):
+def build_model(torch, params, fast, loglike_kernel, enroll,
+                spd_solver="cholesky_rt"):
     from speakerguard_tpu_torch.models.iv_plda import IvPlda
-    model = IvPlda(params, fast=fast, loglike_kernel=loglike_kernel)
+    model = IvPlda(params, fast=fast, loglike_kernel=loglike_kernel,
+                   spd_solver=spd_solver)
     model.set_enrollment([f"spk{i}" for i in range(len(enroll))], enroll)
     return model
 
@@ -408,6 +596,7 @@ def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
            "samples": int(x.shape[1]), "attack": "PGD", "iterations": iters,
            "fast_path": None if fast is None else vars(fast),
            "loglike_kernel": model.loglike_kernel,
+           "spd_solver": model.spd_solver,
            "warmup_pgd1_s": warmup_s, "make_decision_s": decide_s,
            "pgd_s": pgd_s, "pgd_ms_per_iter": pgd_s * 1e3 / iters,
            "pgd_utts_per_s": batch / pgd_s,
@@ -431,8 +620,9 @@ def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
 
 
 def phase_slices(torch, wrappers, profile_dir):
-    """The three slices on one set of full-width weights (the models share
-    the parameter tensors).  Returns {slice: launch counts}."""
+    """The five slices on one set of full-width weights (the models share
+    the parameter tensors).  Each expects a launch count of every wrapper,
+    0 where it names none.  Returns {slice: launch counts}."""
     from speakerguard_tpu_torch.models.base import FastPath
     from speakerguard_tpu_torch.models.iv_plda import random_iv_plda_params
     batch, length, n_spk, iters = 64, 48000, 10, 10
@@ -449,20 +639,50 @@ def phase_slices(torch, wrappers, profile_dir):
         np.float32), device="cuda")
     torch.cuda.synchronize()
     emit({"phase": "setup", "seconds": time.perf_counter() - t0})
-    chol_only = {"cholesky_rt": 1 + iters + 1}
-    slices = [
-        ("slice", FastPath(enabled=False), False, chol_only),
+    # one solve per exact evaluation (make_decision, the final one) and per
+    # iteration; chol_solve's backward solves once more
+    evals = 1 + iters + 1
+    chol_only = {"cholesky_rt": evals}
+    slices = [  # (name, FastPath, loglike_kernel, spd_solver, launches)
+        ("slice", FastPath(enabled=False), False, "cholesky_rt", chol_only),
         ("slice_fast_kernels", FastPath(gmm_topk=0, stats_kernel=True), True,
-         {"cholesky_rt": 1 + iters + 1, "stats_fwd": iters,
-          "stats_bwd": iters, "fused_loglike": 2}),
-        ("slice_fast_default", FastPath(), False, chol_only),
+         "cholesky_rt", {"cholesky_rt": evals, "stats_fwd": iters,
+                         "stats_bwd": iters, "fused_loglike": 2}),
+        ("slice_fast_default", FastPath(), False, "cholesky_rt", chol_only),
+        ("slice_chol_dinv", FastPath(), False, "cholesky_rt_dinv",
+         {"cholesky_rt_dinv": evals}),
+        ("slice_chol_solve", FastPath(), False, "chol_solve",
+         {"chol_solve": evals + iters}),
     ]
-    out = {}
-    for name, fast, kernel, expected in slices:
-        model = build_model(torch, params, fast, kernel, enroll)
+    out, models = {}, {}
+    for name, fast, kernel, solver, launches in slices:
+        model = build_model(torch, params, fast, kernel, enroll, solver)
+        expected = {k: launches.get(k, 0) for k in wrappers}
         out[name] = run_slice(torch, name, model, x, wrappers, expected,
                               profile_dir, batch, iters)
-    return out
+        models[name] = model
+    return out, models, x
+
+
+def phase_rounds(torch, models, x, rounds, iters=10):
+    """ms per PGD iteration of the given models, ``rounds`` times each, the
+    order rotated every round so that no model always runs first."""
+    from speakerguard_tpu_torch.attacks import PGD
+    names = list(models)
+    with torch.no_grad():
+        labels = models[names[0]].make_decision(x)[0].long()
+    times = {n: [] for n in names}
+    for r in range(rounds):
+        for n in names[r % len(names):] + names[:r % len(names)]:
+            atk = PGD(models[n], task="CSI", epsilon=0.002,
+                      step_size=0.0004, max_iter=iters, loss="Entropy")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            atk.attack(x, labels, rng=0)
+            torch.cuda.synchronize()
+            times[n].append((time.perf_counter() - t0) * 1e3 / iters)
+    emit({"phase": "rounds", "iterations": iters, "ms_per_iter": times,
+          "median": {n: statistics.median(v) for n, v in times.items()}})
 
 
 def profile_one_iteration(torch, model, x, labels, out_dir, name):
@@ -545,36 +765,49 @@ def main(argv):
                           or "spill" in ln]
                     for src, log in logs.items()}})
 
-    chol_rec = phase_kernels(torch, chol)
-    gmm_recs = phase_gmm_kernels(torch)
+    recs = {"cholesky_rt": phase_kernels(torch, chol),
+            "cholesky_rt_dinv": phase_chol_dinv(torch, chol),
+            "chol_solve": phase_chol_solve(torch, chol),
+            **phase_gmm_kernels(torch)}
     phase_small_reference(torch)
     wrappers = {"cholesky_rt": chol.cholesky_rt,
+                "cholesky_rt_dinv": chol.cholesky_rt_dinv,
+                "chol_solve": chol.chol_solve,
                 "fused_loglike": gmm_loglike.fused_loglike,
                 "stats_fwd": gmm_stats.stats_fwd,
                 "stats_bwd": gmm_stats.stats_bwd}
-    launches = phase_slices(torch, wrappers, profile_dir)
+    launches, models, x = phase_slices(torch, wrappers, profile_dir)
+    if "--rounds" in argv:
+        phase_rounds(torch, {n: models[n] for n in (
+            "slice_fast_default", "slice_chol_dinv", "slice_chol_solve")},
+            x, int(argv[argv.index("--rounds") + 1]))
 
+    chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"
-    replaces = {
-        "fused_loglike": "speakerguard_tpu/ops/pallas_gmm.py:61",
-        "stats_fwd": "speakerguard_tpu/ops/pallas_gmm_stats.py:179",
-        "stats_bwd": "speakerguard_tpu/ops/pallas_gmm_stats.py:226"}
-    kernels = [{
-        "name": "cholesky_rt", "route": "cuda",
-        "source": "speakerguard_tpu_torch/csrc/chol.cu",
-        "replaces": "speakerguard_tpu/ops/pallas_chol.py:489",
-        "launches": launches["slice"]["cholesky_rt"],
-        "launches_by_path": {k: v["cholesky_rt"]
-                             for k, v in launches.items()},
-        "max_abs_err": chol_rec["max_abs_err"],
-        "ms": chol_rec["ms"], "plain_ms": chol_rec["plain_ms"],
-        "bound_ms": chol_rec["bound_ms"], "bound_by": chol_rec["bound_by"],
-        "library_ms": chol_rec["library_ms"]}]
-    for k, rec in gmm_recs.items():
+    # kernel: (source, the TPU kernel it replaces, the slice that is its
+    # main path)
+    where = {
+        "cholesky_rt": (chol_src, "speakerguard_tpu/ops/pallas_chol.py:489",
+                        "slice"),
+        "cholesky_rt_dinv": (chol_src,
+                             "speakerguard_tpu/ops/pallas_chol.py:251",
+                             "slice_chol_dinv"),
+        "chol_solve": (chol_src, "speakerguard_tpu/ops/pallas_chol.py:440",
+                       "slice_chol_solve"),
+        "fused_loglike": (gmm_src, "speakerguard_tpu/ops/pallas_gmm.py:61",
+                          "slice_fast_kernels"),
+        "stats_fwd": (gmm_src,
+                      "speakerguard_tpu/ops/pallas_gmm_stats.py:179",
+                      "slice_fast_kernels"),
+        "stats_bwd": (gmm_src,
+                      "speakerguard_tpu/ops/pallas_gmm_stats.py:226",
+                      "slice_fast_kernels")}
+    kernels = []
+    for k, (src, replaces, path) in where.items():
+        rec = recs[k]
         kernels.append({
-            "name": k, "route": "cuda", "source": gmm_src,
-            "replaces": replaces[k],
-            "launches": launches["slice_fast_kernels"][k],
+            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[path][k],
             "launches_by_path": {p: v[k] for p, v in launches.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

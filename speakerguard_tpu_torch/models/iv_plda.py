@@ -6,12 +6,19 @@ length-norm -> PLDA, batched and differentiable end to end.
 
 Feature flags (iv_plda.py:75-77): 0=wav, 1=raw MFCC, 2=+deltas, 3=CMVN.
 
-``IvPlda(params, fast=..., loglike_kernel=...)`` picks the paths: ``fast``
-configures the attack-gradient path (``models.base.FastPath``; None turns
-it on when the model's buffers lie on a CUDA device and off on the CPU, as
-the JAX package's SG_FAST=auto does per backend), and ``loglike_kernel``
-routes the exact path's GMM loglike through the fused kernel
-(ops/gmm_loglike.py; the JAX package's SG_GMM_PALLAS=1).
+``IvPlda(params, fast=..., loglike_kernel=..., spd_solver=...)`` picks the
+paths: ``fast`` configures the attack-gradient path
+(``models.base.FastPath``; None turns it on when the model's buffers lie on
+a CUDA device and off on the CPU, as the JAX package's SG_FAST=auto does per
+backend), ``loglike_kernel`` routes the exact path's GMM loglike through the
+fused kernel (ops/gmm_loglike.py; the JAX package's SG_GMM_PALLAS=1), and
+``spd_solver`` picks the kernel of the i-vector SPD solve on the exact and
+the fast path alike (models/ivector.py ``spd_solve``), as the JAX package's
+variables do:
+
+  "cholesky_rt"       SG_CHOL_PALLAS=1 (the default)
+  "cholesky_rt_dinv"  SG_CHOL_PALLAS=1 and SG_CHOL_EMIT_DINV=1
+  "chol_solve"        SG_CHOL_PALLAS=fused
 """
 
 import math
@@ -118,7 +125,8 @@ def make_fast_context(params: IvPldaParams, feats: torch.Tensor,
 def embedding_from_cmvn(params: IvPldaParams, feats: torch.Tensor,
                         fast: FastPath | None = None,
                         topk_ctx: IvFastContext | None = None,
-                        loglike_kernel: bool = False) -> torch.Tensor:
+                        loglike_kernel: bool = False,
+                        spd_solver: str = "cholesky_rt") -> torch.Tensor:
     """(B, T, D) CMVN features -> (B, R) processed embeddings.
 
     ``fast`` (a FastPath; None = exact) runs the bf16 attack-gradient
@@ -126,7 +134,7 @@ def embedding_from_cmvn(params: IvPldaParams, feats: torch.Tensor,
     ``topk_ctx``'s frozen selection when given; scores drift at the bf16
     level, so callers keep success decisions on the exact path.
     ``loglike_kernel`` (exact path) routes the loglike through the fused
-    kernel."""
+    kernel; ``spd_solver`` picks the SPD solve's kernel."""
     if feats.shape[-1] != params.fgmm.dim:
         raise ValueError(
             f"feature dim {feats.shape[-1]} != UBM dim {params.fgmm.dim}; "
@@ -137,7 +145,8 @@ def embedding_from_cmvn(params: IvPldaParams, feats: torch.Tensor,
         loglike_kernel=loglike_kernel)
     ivec = iv_mod.extract_ivectors(
         params.extractor, zeroth, first, fast=fast,
-        topk=None if topk_ctx is None else topk_ctx.iv)
+        topk=None if topk_ctx is None else topk_ctx.iv,
+        spd_solver=spd_solver)
     return process_emb(params, ivec)
 
 
@@ -163,10 +172,15 @@ class IvPlda(SRSModel):
 
     def __init__(self, params: IvPldaParams, model_file: str | None = None,
                  threshold: float | None = None, mfcc_config=IV_PLDA_MFCC,
-                 fast: FastPath | None = None, loglike_kernel: bool = False):
+                 fast: FastPath | None = None, loglike_kernel: bool = False,
+                 spd_solver: str = "cholesky_rt"):
         super().__init__()
+        if spd_solver not in iv_mod.SPD_SOLVERS:
+            raise ValueError(f"spd_solver {spd_solver!r} not in "
+                             f"{iv_mod.SPD_SOLVERS}")
         self.fast = fast
         self.loglike_kernel = loglike_kernel
+        self.spd_solver = spd_solver
         for group, cls in _GROUPS.items():
             sub = getattr(params, group)
             for field in cls._fields:
@@ -228,7 +242,7 @@ class IvPlda(SRSModel):
         return embedding_from_cmvn(
             self.params, feats, fast=fp,
             topk_ctx=fast_ctx if fp is not None else None,
-            loglike_kernel=self.loglike_kernel)
+            loglike_kernel=self.loglike_kernel, spd_solver=self.spd_solver)
 
     def fast_context(self, x):
         """The frozen batch-shared top-K Gaussian selection of an attack

@@ -15,8 +15,9 @@ is evaluated with two load-time precomputations on the device:
   * ``proj`` (C, IV, D) = T_c^T Sigma_c^-1, so ``linear`` is one einsum.
 
 The SPD solve factors L with the hand-written batched Cholesky
-(ops/chol.py ``cholesky_rt``) and differentiates by the implicit function
-theorem, reusing the forward's factor in the backward.  The fast
+(ops/chol.py ``cholesky_rt``, or ``cholesky_rt_dinv``, or the fused
+``chol_solve``, as ``spd_solver`` picks) and differentiates by the implicit
+function theorem, reusing the forward's factor in the backward.  The fast
 attack-gradient path (``FastPath``) reads bf16 copies of quad_packed and
 proj, optionally restricted to a frozen top-K component selection
 (``IvectorTopK``), assembles L in bf16 (``ivec_l_bf16``) and factors it
@@ -32,7 +33,8 @@ import torch
 from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.models.base import FastPath
 from speakerguard_tpu_torch.models.gmm import dot_f32, fast_dot_dtype
-from speakerguard_tpu_torch.ops.chol import cholesky_rt
+from speakerguard_tpu_torch.ops.chol import (DINV_M, chol_solve, cholesky_rt,
+                                             cholesky_rt_dinv)
 from speakerguard_tpu_torch.ops.trsv import triangular_solve_vec
 
 
@@ -108,40 +110,73 @@ def random_extractor(rng: np.random.Generator, num_gaussians: int = 2048,
     return build_extractor(m, sigma_inv, 1.0, device=device)
 
 
-def _chol_apply(factor: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Solve A x = v given A = R^T R (two triangular solves)."""
-    y = triangular_solve_vec(factor, v, lower=False, transpose_a=True)
-    return triangular_solve_vec(factor, y, lower=False)
+SPD_SOLVERS = ("cholesky_rt", "cholesky_rt_dinv", "chol_solve")
+
+
+def _chol_apply(factor: torch.Tensor, v: torch.Tensor,
+                dinv_t: torch.Tensor | None = None) -> torch.Tensor:
+    """Solve A x = v given A = R^T R (two triangular solves; with the
+    factor's dinv_t both are batched matvecs)."""
+    kw = {} if dinv_t is None else {"dinv_t": dinv_t, "m": DINV_M}
+    y = triangular_solve_vec(factor, v, lower=False, transpose_a=True, **kw)
+    return triangular_solve_vec(factor, y, lower=False, **kw)
 
 
 class _SpdSolve(torch.autograd.Function):
     """x = A^-1 rhs.  The backward (grad_rhs = A^-1 g, grad_A = -outer(
-    grad_rhs, x)) needs a second solve against the same matrix, so the
-    forward saves the Cholesky FACTOR and the backward is two triangular
-    solves: exactly one factorization per forward + backward.  A bf16 A
-    (the fast path's bf16 L) is read by the kernel as it is and receives a
-    bf16 cotangent."""
+    grad_rhs, x)) needs a second solve against the same matrix.
+
+    "cholesky_rt" / "cholesky_rt_dinv": the forward saves the Cholesky
+    FACTOR (and its dinv_t) and the backward is two triangular solves:
+    exactly one factorization per forward + backward.  A bf16 A (the fast
+    path's bf16 L) is read by the kernel as it is.
+    "chol_solve": one fused solve each way; the backward has no factor and
+    solves against the saved matrix once more.  A bf16 A is converted to
+    float32 first and ``bf16_updates`` does not apply (JAX ivector.py
+    _make_spd_solve, kind "fused").
+    Either way A's cotangent is cast to A's dtype."""
 
     @staticmethod
-    def forward(ctx, l_mat, rhs, bf16_updates):
-        factor = cholesky_rt(l_mat, bf16_updates=bf16_updates)
-        x = _chol_apply(factor, rhs)
-        ctx.save_for_backward(factor, x)
+    def forward(ctx, l_mat, rhs, bf16_updates, solver):
         ctx.l_dtype = l_mat.dtype
+        ctx.solver = solver
+        if solver == "chol_solve":
+            x = chol_solve(l_mat.to(torch.float32), rhs)
+            ctx.save_for_backward(l_mat, x)
+            return x
+        if solver == "cholesky_rt_dinv":
+            factor, dinv_t = cholesky_rt_dinv(l_mat,
+                                              bf16_updates=bf16_updates)
+        else:
+            factor = cholesky_rt(l_mat, bf16_updates=bf16_updates)
+            dinv_t = None
+        x = _chol_apply(factor, rhs, dinv_t)
+        ctx.save_for_backward(factor, dinv_t, x)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        factor, x = ctx.saved_tensors
-        u = _chol_apply(factor, g)
-        return (-u[:, :, None] * x[:, None, :]).to(ctx.l_dtype), u, None
+        if ctx.solver == "chol_solve":
+            l_mat, x = ctx.saved_tensors
+            u = chol_solve(l_mat.to(torch.float32), g)
+        else:
+            factor, dinv_t, x = ctx.saved_tensors
+            u = _chol_apply(factor, g, dinv_t)
+        return (-u[:, :, None] * x[:, None, :]).to(ctx.l_dtype), u, None, None
 
 
 def spd_solve(l_mat: torch.Tensor, rhs: torch.Tensor,
-              bf16_updates: bool = False) -> torch.Tensor:
-    """Batched SPD solve x = A^-1 rhs via Cholesky.  l_mat: (B, N, N)
-    symmetric positive definite, float32 or bfloat16; rhs: (B, N)."""
-    return _SpdSolve.apply(l_mat, rhs, bf16_updates)
+              bf16_updates: bool = False,
+              solver: str = "cholesky_rt") -> torch.Tensor:
+    """Batched SPD solve x = A^-1 rhs.  l_mat: (B, N, N) symmetric positive
+    definite, float32 or bfloat16; rhs: (B, N).  ``solver`` (SPD_SOLVERS)
+    picks the kernel: "cholesky_rt" (factor, then two triangular solves),
+    "cholesky_rt_dinv" (factor and inverted diagonal blocks, then two
+    block substitutions of batched matvecs) or "chol_solve" (one fused
+    solve; ``bf16_updates`` does not apply)."""
+    if solver not in SPD_SOLVERS:
+        raise ValueError(f"solver {solver!r} not in {SPD_SOLVERS}")
+    return _SpdSolve.apply(l_mat, rhs, bf16_updates, solver)
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,13 +262,15 @@ def make_topk_slices(params: IvectorExtractorParams,
 
 def extract_ivectors(params: IvectorExtractorParams, zeroth: torch.Tensor,
                      first: torch.Tensor, fast: FastPath | None = None,
-                     topk: IvectorTopK | None = None) -> torch.Tensor:
+                     topk: IvectorTopK | None = None,
+                     spd_solver: str = "cholesky_rt") -> torch.Tensor:
     """zeroth: (B, C), first: (B, C, D) -> ivectors (B, IV).
 
     Matches reference ivector_extract.py:98-114 (Extractivector), batched.
     ``fast`` (a FastPath; None = exact) uses the bf16 parameter copies, or
     with ``topk`` the slices matching SELECTED-space stats (B, K) /
-    (B, K, D).  The factorization reads the (bf16 or f32) L as it is."""
+    (B, K, D).  The factorization reads the (bf16 or f32) L as it is;
+    ``spd_solver`` picks the kernel of the solve (``spd_solve``)."""
     if topk is not None and fast is None:
         raise ValueError("topk slices are a fast-path-only knob")
     iv = params.ivector_dim
@@ -257,7 +294,8 @@ def extract_ivectors(params: IvectorExtractorParams, zeroth: torch.Tensor,
     offset[0] = params.offset
     # L is SPD by construction (I + a sum of PSD terms)
     ivec = spd_solve(l_mat, linear + offset,
-                     bf16_updates=fast is not None and fast.chol_bf16_updates)
+                     bf16_updates=fast is not None and fast.chol_bf16_updates,
+                     solver=spd_solver)
     return ivec - offset
 
 

@@ -1,11 +1,22 @@
-"""Batched upper Cholesky factor R (R^T R = A): CUDA kernel + plain version.
+"""The Cholesky family: CUDA kernels + plain versions.
 
-Port of the Pallas TPU kernel speakerguard_tpu/ops/pallas_chol.py
-``cholesky_rt``.  ``cholesky_rt(a)`` launches the hand-written kernel in
-``csrc/chol.cu`` on a CUDA tensor and runs ``cholesky_rt_plain`` on a CPU
-tensor; there is no fallback from one to the other.
+Ports of the Pallas TPU kernels in speakerguard_tpu/ops/pallas_chol.py:
 
-Both compute the same right-looking blocked sweep with panels of ``NB``
+  ``cholesky_rt(a)``       the batched upper Cholesky factor R, R^T R = A;
+  ``cholesky_rt_dinv(a)``  R and ``dinv_t``, the inverse-transposes of R's
+                           128 x 128 diagonal blocks (identity on the pad
+                           diagonal past N), so that both triangular solves
+                           of an SPD solve become batched matvecs
+                           (ops/trsv.py ``dinv_t=``);
+  ``chol_solve(a, v)``     x = A^-1 v in one call: the sweep carries v as one
+                           more column (it leaves y = R^-T v), then a blocked
+                           back-substitution solves R x = y.
+
+Each wrapper launches the hand-written kernel in ``csrc/chol.cu`` on a CUDA
+tensor and runs its ``*_plain`` version on a CPU tensor; there is no fallback
+from one to the other.
+
+All three compute the same right-looking blocked sweep with panels of ``NB``
 rows: NB sequential pivot steps on the panel rows in float32, then one
 trailing update work[k1:, k1:] -= P^T P (upper triangle) with
 P = R[k0:k1, k1:].  ``bf16_updates`` rounds the trailing-update operands to
@@ -25,7 +36,8 @@ import torch
 
 from speakerguard_tpu_torch.ops._build import KernelWrapper, check_rc
 
-NB = 32  # panel rows; the kernel reports its own and _kernel() checks it
+NB = 32      # panel rows; the kernel reports its own and _lib() checks it
+DINV_M = 128  # edge of the diagonal blocks that cholesky_rt_dinv inverts
 
 
 def _check(a: torch.Tensor):
@@ -36,17 +48,30 @@ def _check(a: torch.Tensor):
         raise TypeError(f"expected float32 or bfloat16, got {a.dtype}")
 
 
-def cholesky_rt_plain(a: torch.Tensor,
-                      bf16_updates: bool = False) -> torch.Tensor:
-    """The kernel's algorithm in PyTorch ops (the CPU path and the card's
-    comparison yardstick)."""
+def _check_solve(a: torch.Tensor, v: torch.Tensor):
     _check(a)
+    if a.dtype != torch.float32 or v.dtype != torch.float32:
+        raise TypeError(f"chol_solve takes float32 (convert a bf16 A first), "
+                        f"got {a.dtype} and {v.dtype}")
+    if tuple(v.shape) != tuple(a.shape[:2]):
+        raise ValueError(f"expected v of shape {tuple(a.shape[:2])}, got "
+                         f"{tuple(v.shape)}")
+    if v.device != a.device:
+        raise ValueError(f"a on {a.device}, v on {v.device}")
+
+
+def _sweep(a: torch.Tensor, v: torch.Tensor | None = None,
+           bf16_updates: bool = False):
+    """The blocked sweep in PyTorch ops.  Returns R, and with ``v`` also
+    y = R^-T v: v rides every row operation as one more column."""
     n = a.shape[-1]
     work = torch.triu(a.to(torch.float32))
+    if v is not None:
+        work = torch.cat([work, v[..., None]], dim=-1)
     r = torch.zeros_like(work)
     for k0 in range(0, n, NB):
         k1 = min(k0 + NB, n)
-        pan = work[:, k0:k1, k0:].clone()      # (B, p, n - k0)
+        pan = work[:, k0:k1, k0:].clone()      # (B, p, width - k0)
         for j in range(k1 - k0):
             piv = torch.sqrt(pan[:, j, j])
             inv = 1.0 / piv
@@ -61,8 +86,70 @@ def cholesky_rt_plain(a: torch.Tensor,
             p = r[:, k0:k1, k1:]
             if bf16_updates:
                 p = p.to(torch.bfloat16).to(torch.float32)
-            work[:, k1:, k1:] -= torch.triu(p.mT @ p)
-    return r
+            work[:, k1:, k1:] -= torch.triu(p[..., :n - k1].mT @ p)
+    if v is None:
+        return r
+    return r[..., :n], r[..., n]
+
+
+def cholesky_rt_plain(a: torch.Tensor,
+                      bf16_updates: bool = False) -> torch.Tensor:
+    """The kernel's algorithm in PyTorch ops (the CPU path and the card's
+    comparison yardstick)."""
+    _check(a)
+    return _sweep(a, bf16_updates=bf16_updates)
+
+
+def diag_block_inverses_t(r: torch.Tensor, m: int = DINV_M) -> torch.Tensor:
+    """(B, N, N) upper triangular R -> (B, K, m, m), K = ceil(N / m):
+    [:, i] = inv(D_i)^T for the i-th m x m diagonal block D_i of R padded
+    with identity past N.  Row-by-row back-substitution of D X = I, every
+    column at once, in float32 (the inversion launch of cholesky_rt_dinv
+    computes each column the same way)."""
+    b, n = r.shape[0], r.shape[-1]
+    k = -(-n // m)
+    eye = torch.eye(m, dtype=torch.float32, device=r.device)
+    d = eye.repeat(b, k, 1, 1)
+    for i in range(k):
+        s = min(m, n - i * m)
+        d[:, i, :s, :s] = torch.triu(r[:, i * m:i * m + s, i * m:i * m + s])
+    x = torch.zeros_like(d)
+    for i in range(m - 1, -1, -1):
+        acc = (d[:, :, i, None, i + 1:] @ x[:, :, i + 1:, :])[:, :, 0]
+        x[:, :, i, :] = (eye[i] - acc) / d[:, :, i, i, None]
+    return x.mT
+
+
+def cholesky_rt_dinv_plain(a: torch.Tensor, bf16_updates: bool = False):
+    """(R, dinv_t): R is ``cholesky_rt_plain(a, bf16_updates)`` bit for
+    bit, dinv_t its diagonal blocks' inverse-transposes."""
+    r = cholesky_rt_plain(a, bf16_updates)
+    return r, diag_block_inverses_t(r)
+
+
+def _back_substitute(r: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Solve R x = y by NB-row blocks from the bottom: the block's rows take
+    the solved x below them in one matvec, then its NB x NB triangle is
+    solved row by row upward."""
+    n = r.shape[-1]
+    x = torch.zeros_like(y)
+    for k0 in reversed(range(0, n, NB)):
+        k1 = min(k0 + NB, n)
+        val = y[:, k0:k1] - (r[:, k0:k1, k1:] @ x[:, k1:, None])[..., 0]
+        d = r[:, k0:k1, k0:k1]
+        for j in range(k1 - k0 - 1, -1, -1):
+            xj = val[:, j] / d[:, j, j]
+            val[:, :j] -= d[:, :j, j] * xj[:, None]
+            val[:, j] = xj
+        x[:, k0:k1] = val
+    return x
+
+
+def chol_solve_plain(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x = A^-1 v with the kernel's algorithm in PyTorch ops, float32."""
+    _check_solve(a, v)
+    r, y = _sweep(a, v)
+    return _back_substitute(r, y)
 
 
 def blocked_residual(a: torch.Tensor, r: torch.Tensor,
@@ -86,21 +173,36 @@ def blocked_residual(a: torch.Tensor, r: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry point of csrc/chol.cu, built at first use."""
+def _lib():
+    """The C entry points of csrc/chol.cu, built at first use."""
     from speakerguard_tpu_torch.ops._build import load_library
     lib = load_library("chol")
     lib.sg_cholesky_rt_nb.restype = ctypes.c_int
     if lib.sg_cholesky_rt_nb() != NB:
-        # the plain version and blocked_residual group the updates by NB
+        # the plain versions and blocked_residual group the updates by NB
         raise RuntimeError(f"csrc/chol.cu panels {lib.sg_cholesky_rt_nb()} "
                            f"rows, ops/chol.py NB = {NB}")
-    fn = lib.sg_cholesky_rt
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+            # a, a_is_bf16, work, out, batch, n, bf16_updates, stream
+            ("sg_cholesky_rt", [ptr, i32, ptr, ptr, i32, i32, i32, ptr]),
+            # ... the same, then dinv_t
+            ("sg_cholesky_rt_dinv",
+             [ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr]),
+            # a, v, work, out, y_work, y, x, batch, n, stream
+            ("sg_chol_solve", [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                               ptr])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(fn, t: torch.Tensor, *args) -> int:
+    """Call a C entry point with ``args`` and the current stream of
+    ``t``'s device, that device current."""
+    with torch.cuda.device(t.device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 class _CholeskyRT(KernelWrapper):
@@ -113,19 +215,68 @@ class _CholeskyRT(KernelWrapper):
         _check(a)
         if not self.route(a):
             return cholesky_rt_plain(a, bf16_updates)
-        fn = _kernel()
         a = a.contiguous()
         b, n, _ = a.shape
         out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
         work = torch.empty_like(out)
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(a.data_ptr(), int(a.dtype == torch.bfloat16),
-                    work.data_ptr(), out.data_ptr(), b, n, int(bf16_updates),
-                    stream)
-        check_rc(rc, "cholesky_rt")
+        rc = _launch(_lib().sg_cholesky_rt, a, a.data_ptr(),
+                     int(a.dtype == torch.bfloat16), work.data_ptr(),
+                     out.data_ptr(), b, n, int(bf16_updates))
+        check_rc(rc, self.name)
         self.launches += 1
         return out
 
 
+class _CholeskyRTDinv(KernelWrapper):
+    """``cholesky_rt_dinv(a, bf16_updates=False) -> (R, dinv_t)``: R as
+    ``cholesky_rt`` computes it, bit for bit, and dinv_t (B, K, 128, 128)
+    float32, K = ceil(N / 128); counting its calls."""
+
+    name = "cholesky_rt_dinv"
+
+    def __call__(self, a: torch.Tensor, bf16_updates: bool = False):
+        _check(a)
+        if not self.route(a):
+            return cholesky_rt_dinv_plain(a, bf16_updates)
+        a = a.contiguous()
+        b, n, _ = a.shape
+        k = -(-n // DINV_M)
+        out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
+        work = torch.empty_like(out)
+        dinv_t = torch.empty((b, k, DINV_M, DINV_M), dtype=torch.float32,
+                             device=a.device)
+        rc = _launch(_lib().sg_cholesky_rt_dinv, a, a.data_ptr(),
+                     int(a.dtype == torch.bfloat16), work.data_ptr(),
+                     out.data_ptr(), dinv_t.data_ptr(), b, n,
+                     int(bf16_updates))
+        check_rc(rc, self.name)
+        self.launches += 1
+        return out, dinv_t
+
+
+class _CholSolve(KernelWrapper):
+    """``chol_solve(a, v) -> x = a^-1 v``, float32 (B, N, N) and (B, N);
+    counting its calls."""
+
+    name = "chol_solve"
+
+    def __call__(self, a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        _check_solve(a, v)
+        if not self.route(a):
+            return chol_solve_plain(a, v)
+        a, v = a.contiguous(), v.contiguous()
+        b, n, _ = a.shape
+        out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
+        work = torch.empty_like(out)
+        y_work, y, x = (torch.empty_like(v) for _ in range(3))
+        rc = _launch(_lib().sg_chol_solve, a, a.data_ptr(), v.data_ptr(),
+                     work.data_ptr(), out.data_ptr(), y_work.data_ptr(),
+                     y.data_ptr(), x.data_ptr(), b, n)
+        check_rc(rc, self.name)
+        self.launches += 1
+        return x
+
+
 cholesky_rt = _CholeskyRT()
+cholesky_rt_dinv = _CholeskyRTDinv()
+chol_solve = _CholSolve()

@@ -10,9 +10,9 @@ Port of speakerguard_tpu/ops/kaldi_mfcc.py (reference model/iv_plda.py:
 The power spectrum is a real DFT written as two matmuls with the
 (linear) preemphasis and window folded into the DFT matrices at float64
 precompute time, exactly as the JAX package does, so both packages round
-the same way; its VJP is the JAX package's hand-written one.  The framing
-gather's backward is still autograd's (the JAX package's overlap-add VJP
-is not ported yet; the tests hold the two gradients against each other).
+the same way; its VJP is the JAX package's hand-written one.  So is the
+framing gather's (``_Framer``): a fold of reshape-adds instead of autograd's
+sort-based scatter of the overlapping frames.
 
 ``fast_dft=True`` (attack-gradient graphs, ``FastPath.dft_bf16``) runs the
 two DFT matmuls with bf16 operands and float32 accumulation on the card,
@@ -170,13 +170,55 @@ def _frame_index(length: int, cfg: MfccConfig,
     return torch.as_tensor(idx, device=device)
 
 
+class _Framer(torch.autograd.Function):
+    """The framing gather of snip_edges=False with the JAX package's
+    scatter-free VJP (kaldi_mfcc.py _framer, edge "kaldi").  The cotangent
+    is folded in "extended" coordinates e = sample + pad, where frame t's
+    taps [k*shift, (k+1)*shift) land on the contiguous range
+    [(t + k)*shift, (t + k + 1)*shift): ceil(win/shift) reshape-adds, then
+    the two reflected edges are flip-added back (e in [0, pad) is sample
+    pad-1-e; e in [pad+L, ext) is sample L-1-(e-pad-L))."""
+
+    @staticmethod
+    def forward(ctx, wav, cfg):
+        length = wav.shape[1]
+        ctx.geometry = (length, num_frames(length, cfg), cfg.window_size,
+                        cfg.window_shift, cfg.window_size // 2
+                        - cfg.window_shift // 2)
+        return wav[:, _frame_index(length, cfg, wav.device)]
+
+    @staticmethod
+    def backward(ctx, cot):
+        length, t, win, shift, pad = ctx.geometry
+        b = cot.shape[0]
+        ext = (t - 1) * shift + win
+        g_ext = cot.new_zeros((b, ext + shift))  # slack for the last chunk
+        for k in range(-(-win // shift)):
+            w = min(shift, win - k * shift)
+            seg = cot[:, :, k * shift:k * shift + w]
+            if w < shift:
+                seg = torch.nn.functional.pad(seg, (0, shift - w))
+            g_ext[:, k * shift:k * shift + t * shift] += seg.reshape(
+                b, t * shift)
+        g = g_ext[:, pad:pad + length].clone()
+        right = ext - pad - length
+        if pad > 0:
+            g[:, :pad] += g_ext[:, :pad].flip(-1)
+        if right > 0:
+            g[:, length - right:] += g_ext[:, pad + length:ext].flip(-1)
+        return g, None
+
+
 def frame_signal(wav: torch.Tensor, cfg: MfccConfig) -> torch.Tensor:
     """(B, L) -> (B, T, window_size) frames.
 
     snip_edges=False: frame t covers original samples
-    [t*shift + shift//2 - win//2, ...), matching Kaldi/torchaudio.
+    [t*shift + shift//2 - win//2, ...), matching Kaldi/torchaudio, with the
+    fold backward of ``_Framer``; snip_edges=True is a plain gather.
     """
-    return wav[:, _frame_index(wav.shape[1], cfg, wav.device)]
+    if cfg.snip_edges:
+        return wav[:, _frame_index(wav.shape[1], cfg, wav.device)]
+    return _Framer.apply(wav, cfg)
 
 
 def _dft_matrices(cfg: MfccConfig):

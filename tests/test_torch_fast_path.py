@@ -35,10 +35,13 @@ from speakerguard_tpu_torch.models.base import FastPath
 from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
                                                    embedding_from_cmvn,
                                                    make_fast_context)
+from speakerguard_tpu_torch.ops import chol
 from speakerguard_tpu_torch.ops.chol import cholesky_rt
 from speakerguard_tpu_torch.ops.gmm_loglike import fused_loglike
 from speakerguard_tpu_torch.ops.gmm_stats import stats_bwd, stats_fwd
 from speakerguard_tpu_torch.ops.kaldi_mfcc import IV_PLDA_MFCC
+
+from test_torch_chol_family import JAX_SOLVER_ENV
 
 KERNELS = FastPath(gmm_topk=0, stats_kernel=True)
 CONFIGS = {  # port FastPath, the JAX variables that select the same path
@@ -433,3 +436,75 @@ def test_package_turns_off_reduced_precision_bf16_reductions():
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+# The i-vector solve's other kernels (IvPlda spd_solver=...) on the top-K
+# fast path against JAX's under the matching SG_CHOL_* settings.  The fast
+# path's bf16 L goes to cholesky_rt_dinv as it is, with bf16 updates, and
+# to chol_solve converted to float32 (JAX ivector.py:159-166, :224-228).
+@pytest.mark.parametrize("solver", ["chol_solve", "cholesky_rt_dinv"])
+def test_spd_solver_fast_scores_and_grads_match_jax(iv, monkeypatch,
+                                                    solver):
+    """Fast scores and waveform gradients as in
+    test_fast_scores_and_grads_match_jax, under each solver."""
+    jax_model, tparams, enroll, wavs = iv
+    fast, env = CONFIGS["topk"]
+    _jax_env(monkeypatch, {**env, **JAX_SOLVER_ENV[solver],
+                           "SG_CHOL_BTILE": "3"})
+    x = jnp.asarray(wavs)
+    ctx = jax_model.fast_context(x)
+    want = np.asarray(jax_model.score(x, fast=True, fast_ctx=ctx))
+    g_want = np.asarray(jax.grad(lambda xx: jnp.sum(
+        jax_model.score(xx, fast=True, fast_ctx=ctx)[:, 0]))(x))
+    port = IvPlda(tparams, mfcc_config=dataclasses.replace(IV_PLDA_MFCC,
+                                                           dither=0.0),
+                  fast=fast, spd_solver=solver)
+    port.set_enrollment([str(i) for i in range(5)], enroll)
+    pctx = port.fast_context(torch.tensor(wavs))
+    wrapper = getattr(chol, solver)
+    wrapper.reset_counts()
+    cholesky_rt.reset_counts()
+    xt = torch.tensor(wavs, requires_grad=True)
+    got = port.score(xt, fast=True, fast_ctx=pctx)
+    got[:, 0].sum().backward()
+    assert wrapper.plain_calls == (2 if solver == "chol_solve" else 1)
+    assert cholesky_rt.plain_calls == 0
+    spread = float(np.abs(want).max())
+    assert np.abs(got.detach().numpy() - want).max() <= 2e-3 * spread
+    g = xt.grad.numpy()
+    assert _cos(g, g_want) >= 0.999
+    nz = np.abs(g_want) > np.abs(g_want).max() * 1e-3
+    assert np.mean(np.sign(g[nz]) == np.sign(g_want[nz])) >= 0.99
+
+
+@pytest.mark.parametrize("solver", ["chol_solve", "cholesky_rt_dinv"])
+def test_spd_solver_fast_pgd_success_identical_to_jax(iv, monkeypatch,
+                                                      solver):
+    """PGD on the top-K fast path with the exact final evaluation, under
+    each solver: JAX's success vector, the epsilon ball, and the kernel
+    once per iteration (twice for chol_solve) plus the final evaluation."""
+    jax_model, tparams, enroll, _ = iv
+    fast, env = CONFIGS["topk"]
+    _jax_env(monkeypatch, {**env, **JAX_SOLVER_ENV[solver],
+                           "SG_CHOL_BTILE": "4"})
+    rng = np.random.default_rng(23)
+    batch, eps, step, iters = 4, 0.003, 0.0008, 5
+    wavs = rng.uniform(-0.25, 0.25, (batch, 8000)).astype(np.float32)
+    labels = rng.integers(0, 5, batch)
+    _, want = JaxPGD(jax_model, task="CSI", epsilon=eps, step_size=step,
+                     max_iter=iters, loss="Entropy").attack(
+        jnp.asarray(wavs), jnp.asarray(labels))
+    port = IvPlda(tparams, mfcc_config=dataclasses.replace(IV_PLDA_MFCC,
+                                                           dither=0.0),
+                  fast=fast, spd_solver=solver)
+    port.set_enrollment([str(i) for i in range(5)], enroll)
+    wrapper = getattr(chol, solver)
+    wrapper.reset_counts()
+    cholesky_rt.reset_counts()
+    adver, got = PGD(port, task="CSI", epsilon=eps, step_size=step,
+                     max_iter=iters, loss="Entropy").attack(wavs, labels)
+    assert got == [bool(s) for s in want]
+    per_iter = 2 if solver == "chol_solve" else 1
+    assert wrapper.plain_calls == per_iter * iters + 1
+    assert cholesky_rt.plain_calls == 0
+    assert float((adver - torch.tensor(wavs)).abs().max()) <= eps + 1e-6

@@ -129,3 +129,30 @@ def test_cmvn_matches_jax_across_window_regimes(t):
                                want, rtol=1e-5, atol=1e-5)
     for a, b in zip(window_bounds(t), jax_cmvn.window_bounds(t)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("length", [8000, 6401, 48000])
+def test_framing_fold_vjp_matches_gather_autograd_and_jax(length):
+    """frame_signal's hand VJP (JAX kaldi_mfcc.py _framer) against autograd
+    of the plain gather (f32 round-off: the same sums of up to 3 overlapping
+    taps plus an edge reflection, in another order) and against the JAX
+    package's fold (the same adds in the same order: equal)."""
+    from speakerguard_tpu_torch.ops.kaldi_mfcc import _frame_index, frame_signal
+    wavs = _wavs(5, length=length)
+    x = torch.tensor(wavs, requires_grad=True)
+    frames = frame_signal(x, IV_PLDA_MFCC)
+    cot = torch.tensor(np.random.default_rng(6).standard_normal(
+        tuple(frames.shape)).astype(np.float32))
+    (frames * cot).sum().backward()
+    x_plain = torch.tensor(wavs, requires_grad=True)
+    plain = x_plain[:, _frame_index(length, IV_PLDA_MFCC, x_plain.device)]
+    assert torch.equal(frames, plain)
+    (plain * cot).sum().backward()
+    want = np.asarray(jax.grad(lambda w: jnp.sum(
+        jax_mfcc.frame_signal(w, jax_mfcc.IV_PLDA_MFCC)
+        * jnp.asarray(cot.numpy())))(jnp.asarray(wavs)))
+    scale = float(x_plain.grad.abs().max())
+    np.testing.assert_allclose(x.grad.numpy(), x_plain.grad.numpy(),
+                               rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(x.grad.numpy(), want, rtol=0,
+                               atol=1e-6 * scale)

@@ -25,8 +25,11 @@ from speakerguard_tpu_torch.attacks import PGD, FGSM, CWinf
 from speakerguard_tpu_torch.attacks.losses import cross_entropy_loss
 from speakerguard_tpu_torch.convert import from_jax_params
 from speakerguard_tpu_torch.models.iv_plda import IvPlda, load_iv_plda_params
+from speakerguard_tpu_torch.ops import chol
 from speakerguard_tpu_torch.ops.chol import cholesky_rt
 from speakerguard_tpu_torch.ops.kaldi_mfcc import IV_PLDA_MFCC
+
+from test_torch_chol_family import _jax_env as _jax_solver_env
 
 # Score tolerance: the bar test_parity_torch.py already holds the JAX scores
 # to (O(10) PLDA scores; f32 sums in a different order through a 64-component
@@ -203,3 +206,101 @@ def test_gmm_stats_and_ivector_extraction_match_jax():
     want = np.asarray(jiv.extract_ivectors(je, jz, jf))
     got = tiv.extract_ivectors(te, tz, tf).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# The i-vector solve's other kernels (IvPlda spd_solver=...) against JAX under
+# the matching SG_CHOL_* settings: the Pallas kernels in interpret mode with
+# the port's panel size, batch tiles of the test batch.
+NEW_SOLVERS = ["chol_solve", "cholesky_rt_dinv"]
+
+
+def _solver_port(port, solver):
+    model = IvPlda(port.params, mfcc_config=port.mfcc_config,
+                   spd_solver=solver)
+    model.set_enrollment(port.spk_ids, port.enroll_embs)
+    return model
+
+
+@pytest.mark.parametrize("solver", NEW_SOLVERS)
+def test_spd_solver_scores_and_grad_match_jax(iv_models, monkeypatch,
+                                              solver):
+    """Scores at the score bar and the CE input gradient at the direction
+    bar of the default solver's tests; one kernel call per forward, and for
+    chol_solve one more per backward."""
+    jax_model, port = iv_models
+    wavs = _wavs(43, b=4)
+    labels = np.array([0, 1, 2, 3])
+    _jax_solver_env(monkeypatch, solver, 4)
+    from speakerguard_tpu.attacks.losses import cross_entropy_loss as jax_ce
+    want = np.asarray(jax_model.score(jnp.asarray(wavs)))
+    g_want = np.asarray(jax.grad(lambda x: jnp.sum(jax_ce(
+        jax_model.score(x), jnp.asarray(labels))))(jnp.asarray(wavs)))
+    model = _solver_port(port, solver)
+    wrapper = getattr(chol, solver)
+    cholesky_rt.reset_counts()
+    wrapper.reset_counts()
+    x = torch.tensor(wavs, requires_grad=True)
+    got = model.score(x)
+    cross_entropy_loss(got, torch.tensor(labels)).sum().backward()
+    assert wrapper.plain_calls == (2 if solver == "chol_solve" else 1)
+    assert cholesky_rt.plain_calls == 0
+    np.testing.assert_allclose(got.detach().numpy(), want, **SCORE_TOL)
+    g = x.grad.numpy().ravel()
+    g_want = g_want.ravel()
+    assert g @ g_want / (np.linalg.norm(g) * np.linalg.norm(g_want)) >= 0.999
+    assert np.mean(np.sign(g) == np.sign(g_want)) >= 0.99
+
+
+@pytest.mark.parametrize("solver", NEW_SOLVERS)
+def test_spd_solver_pgd_success_identical_to_jax(iv_models, monkeypatch,
+                                                 solver):
+    """The PGD of test_pgd_success_vector_identical_to_jax under each
+    solver: identical success vectors; the kernel runs once per iteration
+    (twice for chol_solve, whose backward solves again) plus once for the
+    final evaluation, and cholesky_rt never."""
+    jax_model, port = iv_models
+    rng = np.random.default_rng(23)
+    batch, eps, step, iters = 4, 0.003, 0.0008, 8
+    wavs = rng.uniform(-0.25, 0.25, (batch, 8000)).astype(np.float32)
+    labels = rng.integers(0, 5, batch)
+    _jax_solver_env(monkeypatch, solver, batch)
+    _, want = JaxPGD(jax_model, task="CSI", epsilon=eps, step_size=step,
+                     max_iter=iters, loss="Entropy").attack(
+        jnp.asarray(wavs), jnp.asarray(labels))
+    wrapper = getattr(chol, solver)
+    cholesky_rt.reset_counts()
+    wrapper.reset_counts()
+    adver, got = PGD(_solver_port(port, solver), task="CSI", epsilon=eps,
+                     step_size=step, max_iter=iters, loss="Entropy",
+                     num_random_init=0).attack(wavs, labels)
+    assert got == [bool(s) for s in want]
+    per_iter = 2 if solver == "chol_solve" else 1
+    assert wrapper.plain_calls == per_iter * iters + 1
+    assert cholesky_rt.plain_calls == 0
+    assert float((adver - torch.tensor(wavs)).abs().max()) <= eps + 1e-6
+
+
+@pytest.mark.parametrize("solver", NEW_SOLVERS)
+@pytest.mark.parametrize("cls", [FGSM, CWinf])
+def test_spd_solver_fgsm_cwinf_success_identical_to_jax(iv_models,
+                                                        monkeypatch, solver,
+                                                        cls):
+    from speakerguard_tpu.attacks import FGSM as JaxFGSM, CWinf as JaxCWinf
+    jax_cls = {FGSM: JaxFGSM, CWinf: JaxCWinf}[cls]
+    jax_model, port = iv_models
+    wavs = _wavs(53, b=4)
+    labels = np.array([4, 3, 2, 1])
+    kw = dict(task="CSI", epsilon=0.004)
+    if cls is CWinf:
+        kw.update(step_size=0.001, max_iter=3)
+    _jax_solver_env(monkeypatch, solver, 4)
+    _, want = jax_cls(jax_model, **kw).attack(jnp.asarray(wavs),
+                                              jnp.asarray(labels))
+    _, got = cls(_solver_port(port, solver), **kw).attack(wavs, labels)
+    assert got == [bool(s) for s in want]
+
+
+def test_spd_solver_rejects_unknown(iv_models):
+    _, port = iv_models
+    with pytest.raises(ValueError):
+        IvPlda(port.params, spd_solver="lapack")
