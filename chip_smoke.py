@@ -11,10 +11,14 @@
 Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi); exits non-zero
               when torch sees no CUDA card.
-  2. build    nvcc builds the port's kernel sources, csrc/chol.cu and
-              csrc/gmm.cu, one process each, side by side, into
-              csrc/_build/.
-  3. kernel   each kernel against its plain PyTorch version on the card at
+  2. build    nvcc builds the port's kernel sources, csrc/chol.cu,
+              csrc/gmm.cu and csrc/gmm_stats_fwd.cu, one process each, side
+              by side, into csrc/_build/.
+  3. launch   each of stats_fwd's three launches (aug16, the loglike GEMM
+              with its softmax partials, normalise-and-stats) against its
+              plain version at the main and ragged shapes, with its
+              CUDA-event time at the main shape.
+  4. kernel   each kernel against its plain PyTorch version on the card at
               the main path's shapes and at ragged ones: error, CUDA-event
               times of the kernel, the plain version and one PyTorch library
               call, and the roofline bound.  cholesky_rt on a diagonally
@@ -23,8 +27,9 @@ Phases, one JSON line each:
               to cholesky_rt's, dinv_t inverting R's blocks, pad blocks
               identity); chol_solve (against plain and float64);
               fused_loglike, stats_fwd and stats_bwd (the latter on the
-              posts16 stats_fwd produced).
-  4. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
+              posts16 stats_fwd produced); stats_fwd also beside the same
+              bf16 addmm on the 64-column-padded operands its GEMM takes.
+  5. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
               R=200, weights from a numpy seed), 10 enrolled speakers, task
               CSI-E, 64 utterances of 3 s; make_decision, then PGD (10
               iterations, eps 0.002, step 0.0004, Entropy) on the exact
@@ -33,22 +38,23 @@ Phases, one JSON line each:
               once per PGD iteration plus once per exact evaluation (12).
               The card's scores are checked against the CPU plain path on a
               small model.
-  5. slice_fast_kernels  the same run with FastPath(gmm_topk=0,
+  6. slice_fast_kernels  the same run with FastPath(gmm_topk=0,
               stats_kernel=True) and loglike_kernel=True: stats_fwd and
               stats_bwd once per iteration (10 each), fused_loglike once per
               exact evaluation (2), cholesky_rt 12; no plain call anywhere.
-  6. slice_fast_default  the same run with FastPath() (top-K 256, the
+  7. slice_fast_default  the same run with FastPath() (top-K 256, the
               unfused bf16 stats): cholesky_rt 12.
-  7. slice_chol_dinv  FastPath() with spd_solver="cholesky_rt_dinv":
+  8. slice_chol_dinv  FastPath() with spd_solver="cholesky_rt_dinv":
               cholesky_rt_dinv 12 (the backward reuses factor and dinv_t),
               cholesky_rt 0.
-  8. slice_chol_solve  FastPath() with spd_solver="chol_solve": chol_solve
+  9. slice_chol_solve  FastPath() with spd_solver="chol_solve": chol_solve
               22 (forward and backward of each iteration, and the two exact
               evaluations), cholesky_rt 0.
-  9. rounds   (--rounds N) ms per PGD iteration of slice_fast_default,
+ 10. rounds   (--rounds N) ms per PGD iteration of slice_fast_default,
               slice_chol_dinv and slice_chol_solve, N rounds, the order
               rotated each round: the three differ only in the SPD solver.
- 10. kernels  one line listing every ported kernel.
+ 11. kernels  one line listing every ported kernel (stats_fwd with the
+              time of each of its launches).
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -426,6 +432,142 @@ def gmm_bounds(b, t, d, c):
     }
 
 
+GMM_SHAPES = [(64, 300, 72, 2048), (3, 37, 10, 200), (2, 130, 6, 64)]
+
+
+def gmm_inputs(torch, b, t, d, c):
+    """The GMM kernels' inputs at one shape: a random GMM from a numpy seed,
+    x and the backward's cotangents from a torch seed, all on the card."""
+    from speakerguard_tpu_torch.models.gmm import random_gmm
+    p = random_gmm(np.random.default_rng(c + d), c, d, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(t)
+    x = torch.randn((b, t, d), generator=g, device="cuda")
+    dz = torch.randn((b, c), generator=g, device="cuda")
+    df = torch.randn((b, c, d), generator=g, device="cuda")
+    return p, x, dz, df
+
+
+def stats_fwd_check(x, got, want, pf):
+    """(zeroth, first, posts16) ``got`` against the plain ``want`` and the
+    plain f32 posteriors ``pf``, at the tolerances phase_gmm_kernels gives
+    for stats_fwd.  Returns the record, "ok" included."""
+    from speakerguard_tpu_torch.ops.gmm_stats import _bf
+    (z, f, post16), (zw, fw, pw) = got, want
+    z_err = float((z - zw).abs().max())
+    p_ok = bool(((post16.float() - pf).abs()
+                 <= (2.0 ** -8 + 1e-3) * pf.abs() + 1e-37).all())
+    flips = (post16.float() - pw.float()).abs()
+    f_bound = flips.mT @ _bf(x).abs() + 1e-5 * float(fw.abs().max())
+    f_ok = bool(((f - fw).abs() <= f_bound).all())
+    return {"zeroth_max_abs_err": z_err,
+            "zeroth_tolerance": 1e-4 * float(zw.abs().max()),
+            "first_max_abs_err": float((f - fw).abs().max()),
+            "posts16_share_differing": float((flips > 0).float().mean()),
+            "posts16_within_half_ulp_plus_1e-3": p_ok,
+            "first_within_flip_bound": f_ok,
+            "ok": z_err <= 1e-4 * float(zw.abs().max()) and p_ok and f_ok}
+
+
+def phase_stats_fwd_launches(torch):
+    """stats_fwd's three launches, each against its plain version on the
+    same inputs, at the main and ragged shapes.  Tolerances, with their
+    reasons:
+      aug16      torch.equal: the same roundings (x16, one rounding of the
+                 exact f32 product x16 x16), pad columns zero;
+      loglike    2e-6 of max (|aug16| |projK|^T + |gconsts|), the largest
+                 sum of absolute terms: the GEMM and the plain f32 product
+                 of the same bf16 operands sum exact products in another
+                 order (tensor cores against FMA), and the sum-order error
+                 scales with the absolute terms, not with the result;
+      partials   on the kernel's own loglike: the tile maxima equal, the
+                 sums of exp within 1e-5 relative (at most 256 terms of
+                 2-ulp expf, summed in another order); padded columns
+                 (C = 200, 64) must be left out, or a sum grows by
+                 exp(gconsts - max) per pad column;
+      normalise  on the plain loglike and partials, at stats_fwd's
+                 tolerances (phase_gmm_kernels).
+    Returns {launch: main-shape record}."""
+    from speakerguard_tpu_torch.ops import gmm_stats as S
+    main = {}
+    for b, t, d, c in GMM_SHAPES:
+        is_main = (b, t, d, c) == GMM_SHAPES[0]
+        p, x, _, _ = gmm_inputs(torch, b, t, d, c)
+        proj16 = p.quad_proj.to(torch.bfloat16)
+        f = d + d * (d + 1) // 2
+        shape = {"B": b, "T": t, "D": d, "C": c, "N": b * t, "F": f,
+                 "F_pad": S.padded_k(f)}
+
+        aug16 = S.augment16_padded(x)
+        torch.cuda.synchronize()
+        aug_w = S.augment16_padded_plain(x)
+        recs = {"aug16": {"equal_to_plain": bool(torch.equal(aug16, aug_w)),
+                          "pad_columns_zero": bool(
+                              (aug16[:, f:] == 0).all()),
+                          "tolerance": "torch.equal"}}
+        recs["aug16"]["ok"] = (recs["aug16"]["equal_to_plain"]
+                               and recs["aug16"]["pad_columns_zero"])
+
+        projk = S.proj_kmajor(proj16)
+        ll, part = S.loglike_partials(aug16, projk, p.gconsts)
+        torch.cuda.synchronize()
+        ll_w, part_w = S.loglike_partials_plain(aug16, projk, p.gconsts)
+        terms = float((aug16.float().abs() @ projk.float().abs().T
+                       + p.gconsts.abs()).max())
+        err = float((ll - ll_w).abs().max())
+        recs["loglike_gemm"] = {
+            "max_abs_err": err, "max_abs_loglike": float(ll_w.abs().max()),
+            "max_abs_terms": terms, "tolerance": 2e-6 * terms,
+            "ok": err <= 2e-6 * terms}
+
+        part_k = S.tile_partials(ll)  # plain partials of the kernel's loglike
+        s_rel = float(((part[..., 1] - part_k[..., 1]).abs()
+                       / part_k[..., 1]).max())
+        m_equal = bool(torch.equal(part[..., 0], part_k[..., 0]))
+        m, s = S.combine_partials(part)
+        lse_rel = float(((m + torch.log(s))[:, 0]
+                         - torch.logsumexp(ll, dim=-1)).abs().max()
+                        / torch.logsumexp(ll, dim=-1).abs().max())
+        recs["partials"] = {
+            "max_equal": m_equal, "sum_max_rel_err": s_rel,
+            "sum_tolerance_rel": 1e-5,
+            "combined_max_equal_row_max": bool(torch.equal(
+                m[:, 0], ll.amax(dim=-1))),
+            "combined_lse_rel_err": lse_rel,
+            "ok": m_equal and s_rel <= 1e-5}
+
+        got = S.normalise_stats(ll_w, part_w, x)
+        torch.cuda.synchronize()
+        m_w, s_w = S.combine_partials(part_w)
+        recs["normalise"] = stats_fwd_check(
+            x, got, S.normalise_stats_plain(ll_w, part_w, x),
+            (torch.exp(ll_w - m_w) / s_w).reshape(b, t, c))
+
+        if is_main:
+            n = b * t
+            timing = {
+                "aug16": lambda: S.augment16_padded(x),
+                "proj_kmajor": lambda: S.proj_kmajor(proj16),
+                "loglike_gemm": lambda: S.loglike_partials(aug16, projk,
+                                                           p.gconsts),
+                "normalise": lambda: S.normalise_stats(ll, part, x)}
+            for name, fn in timing.items():
+                recs.setdefault(name, {"ok": True})["ms"] = cuda_ms(fn, 3, 20)
+            gemm = recs["loglike_gemm"]
+            gemm["tflops"] = 2.0 * n * f * c / gemm["ms"] / 1e9
+            gemm["tflops_padded_k"] = (2.0 * n * S.padded_k(f) * c
+                                       / gemm["ms"] / 1e9)
+            gemm["bf16_peak_share"] = gemm["tflops"] * 1e12 / BF16_FLOPS
+        for name, rec in recs.items():
+            rec = {"phase": "launch", "kernel": "stats_fwd", "launch": name,
+                   "case": "main" if is_main else "ragged", **shape, **rec}
+            emit(rec)
+            if not rec["ok"]:
+                raise RuntimeError(f"stats_fwd {name} {shape}: {rec}")
+            if is_main:
+                main[name] = rec
+    return main
+
+
 def phase_gmm_kernels(torch):
     """fused_loglike, stats_fwd and stats_bwd against their plain versions
     at the main path's shape (64 x 300 frames, D=72, C=2048) and at ragged
@@ -444,19 +586,13 @@ def phase_gmm_kernels(torch):
                      scale on all but 5% of entries, 2e-3 on the rest, where
                      bf16(dl) flips by one ulp (2^-7) at a rounding boundary.
     Returns {name: main-shape record}."""
-    from speakerguard_tpu_torch.models.gmm import random_gmm
     from speakerguard_tpu_torch.ops import gmm_loglike as L
     from speakerguard_tpu_torch.ops import gmm_stats as S
     main = {}
-    for b, t, d, c in [(64, 300, 72, 2048), (3, 37, 10, 200),
-                       (2, 130, 6, 64)]:
-        is_main = (b, t, d, c) == (64, 300, 72, 2048)
-        p = random_gmm(np.random.default_rng(c + d), c, d, device="cuda")
-        g = torch.Generator(device="cuda").manual_seed(t)
-        x = torch.randn((b, t, d), generator=g, device="cuda")
+    for b, t, d, c in GMM_SHAPES:
+        is_main = (b, t, d, c) == GMM_SHAPES[0]
+        p, x, dz, df = gmm_inputs(torch, b, t, d, c)
         proj16 = p.quad_proj.to(torch.bfloat16)
-        dz = torch.randn((b, c), generator=g, device="cuda")
-        df = torch.randn((b, c, d), generator=g, device="cuda")
         bounds = gmm_bounds(b, t, d, c)
         shape = {"B": b, "T": t, "D": d, "C": c}
 
@@ -470,23 +606,12 @@ def phase_gmm_kernels(torch):
 
         z, f, post16 = S.stats_fwd(x, proj16, p.gconsts)
         torch.cuda.synchronize()
-        zw, fw, pw = S.stats_fwd_plain(x, proj16, p.gconsts)
-        pf = S.posteriors_plain(x, proj16, p.gconsts)
-        z_err = float((z - zw).abs().max())
-        p_ok = bool(((post16.float() - pf).abs()
-                     <= (2.0 ** -8 + 1e-3) * pf.abs() + 1e-37).all())
-        flips = (post16.float() - pw.float()).abs()
-        f_bound = flips.mT @ S._bf(x).abs() + 1e-5 * float(fw.abs().max())
-        f_ok = bool(((f - fw).abs() <= f_bound).all())
-        recs["stats_fwd"] = {
-            "max_abs_err": max(z_err, float((f - fw).abs().max())),
-            "zeroth_max_abs_err": z_err,
-            "zeroth_tolerance": 1e-4 * float(zw.abs().max()),
-            "first_max_abs_err": float((f - fw).abs().max()),
-            "posts16_share_differing": float((flips > 0).float().mean()),
-            "posts16_within_half_ulp_plus_1e-3": p_ok,
-            "first_within_flip_bound": f_ok,
-            "ok": (z_err <= 1e-4 * float(zw.abs().max())) and p_ok and f_ok}
+        rec = stats_fwd_check(x, (z, f, post16),
+                              S.stats_fwd_plain(x, proj16, p.gconsts),
+                              S.posteriors_plain(x, proj16, p.gconsts))
+        recs["stats_fwd"] = {"max_abs_err": max(rec["zeroth_max_abs_err"],
+                                                rec["first_max_abs_err"]),
+                             **rec}
 
         dx = S.stats_bwd(x, proj16, post16, dz, df)
         torch.cuda.synchronize()
@@ -533,7 +658,15 @@ def phase_gmm_kernels(torch):
                     + " aug (no single PyTorch call computes the fused "
                       "function)")
                 recs[name]["bound_ms"], recs[name]["bound_by"] = bounds[name]
-            del aug, aug16
+            # the same product on the 64-column-padded operands the port's
+            # GEMM takes (2752 columns: rows 16-byte aligned)
+            aug16_pad = S.augment16_padded_plain(x)
+            projk = S.proj_kmajor(proj16)
+            recs["stats_fwd"]["library_aligned_ms"] = cuda_ms(
+                lambda: torch.addmm(g16, aug16_pad, projk.T), 2, 10)
+            recs["stats_fwd"]["library_aligned_call"] = (
+                "torch.addmm(gconsts, aug16 padded to 2752 columns, projK^T)")
+            del aug, aug16, aug16_pad
         for name, rec in recs.items():
             rec = {"phase": "kernel", "kernel": name,
                    "case": "main" if is_main else "ragged", **shape, **rec}
@@ -756,7 +889,7 @@ def main(argv):
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    sources = ("chol", "gmm")
+    sources = ("chol", "gmm", "gmm_stats_fwd")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -765,6 +898,7 @@ def main(argv):
                           or "spill" in ln]
                     for src, log in logs.items()}})
 
+    launch_recs = phase_stats_fwd_launches(torch)
     recs = {"cholesky_rt": phase_kernels(torch, chol),
             "cholesky_rt_dinv": phase_chol_dinv(torch, chol),
             "chol_solve": phase_chol_solve(torch, chol),
@@ -796,7 +930,7 @@ def main(argv):
                        "slice_chol_solve"),
         "fused_loglike": (gmm_src, "speakerguard_tpu/ops/pallas_gmm.py:61",
                           "slice_fast_kernels"),
-        "stats_fwd": (gmm_src,
+        "stats_fwd": ("speakerguard_tpu_torch/csrc/gmm_stats_fwd.cu",
                       "speakerguard_tpu/ops/pallas_gmm_stats.py:179",
                       "slice_fast_kernels"),
         "stats_bwd": (gmm_src,
@@ -812,6 +946,10 @@ def main(argv):
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    fwd = next(k for k in kernels if k["name"] == "stats_fwd")
+    fwd["library_aligned_ms"] = recs["stats_fwd"]["library_aligned_ms"]
+    fwd["launch_ms"] = {k: v["ms"] for k, v in launch_recs.items()
+                        if "ms" in v}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,8 @@
 // Fused GMM kernels for Hopper (sm_90a): the frame log-likelihood of the
-// exact path and the Baum-Welch statistics of the fast attack-gradient path,
-// forward and backward.
+// exact path and the backward of the Baum-Welch statistics of the fast
+// attack-gradient path.  (Their forward is csrc/gmm_stats_fwd.cu.)
 //
-// All three share one idea with the Pallas TPU kernels they replace: the
+// Both share one idea with the Pallas TPU kernels they replace: the
 // augmented features aug(x) = [x, triu(x x^T)] (D + D(D+1)/2 = 2700 columns
 // at D = 72) are built tile by tile in shared memory from the block's x rows
 // and never written to device memory.  ``pairs`` maps a packed index p to
@@ -19,25 +19,6 @@
 //    memory (each slice serves 256 components).  One launch covers every
 //    (b, t) row.
 //
-// B  stats_fwd_kernel    speakerguard_tpu/ops/pallas_gmm_stats.py _stats_fwd
-//                        (kernel _fwd_kernel).
-//    loglike = aug16 . proj16 + gconsts (bf16 operands, f32 accumulation),
-//    posts = softmax over C, zeroth = sum_t posts, first = posts16^T x16,
-//    and the bf16 posteriors posts16 as the backward's residual.
-//    Bound: 2 x 19200 x 2700 x 2048 = 212 GFLOP of bf16 products plus the
-//    small posts16^T x16 product, 0.22 ms at 989 TFLOP/s; ~133 MB, 0.04 ms.
-//    The TPU kernel keeps the whole 11 MB projection in VMEM and carries
-//    zeroth/first across a sequential T grid axis.  Neither holds here
-//    (227 KB of shared memory, blocks in no order), so a block owns one
-//    (utterance b, 128-component tile) and loops over T inside itself, which
-//    sums zeroth/first in a fixed order without atomics.  The softmax runs
-//    across C tiles in two launches: pass 1 writes each (frame, C tile)'s
-//    max and sum of exponentials; pass 2 recomputes the same loglike tile
-//    (bit-identical: same code, same data), normalises it with the frame's
-//    combined max and sum, writes posts16 and accumulates the statistics.
-//    The products run on the tensor cores through WMMA (16x16x16 bf16,
-//    f32 accumulators).  Frames past T are masked: softmax(gconsts) is not 0.
-//
 // C  stats_bwd_*_kernel  speakerguard_tpu/ops/pallas_gmm_stats.py _stats_bwd
 //                        (kernel _bwd_kernel).
 //    dp = dz + x16 . bf16(df)^T, dl = posts (dp - sum_c posts dp),
@@ -50,10 +31,11 @@
 //    frames)) sweeps C twice, for the row sums and then dl, writes bf16(dl)
 //    (N, C) and the direct term; launch 2 (a block per 64 frames of the
 //    flattened batch and share of the F tiles) walks 64-column F tiles,
-//    each a WMMA product bf16(dl) . proj16^T, and applies the chain rule of
-//    that tile at once into per-row dx sums held in shared memory; launch 3
-//    adds the shares' partial dx in a fixed order, and the direct term.
-//    Splitting F gives ~1000 blocks where the batch alone gives 300.
+//    each a WMMA product bf16(dl) . proj16^T (the tensor cores, 16x16x16
+//    bf16, f32 accumulators), and applies the chain rule of that tile at
+//    once into per-row dx sums held in shared memory; launch 3 adds the
+//    shares' partial dx in a fixed order, and the direct term.  Splitting F
+//    gives ~1000 blocks where the batch alone gives 300.
 //
 // The bf16 tiles are staged with 16-byte loads when C % 8 == 0.
 //
@@ -180,7 +162,7 @@ loglike_kernel(const float* __restrict__ x, const float* __restrict__ proj,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core tile product shared by B and C:
+// The tensor-core tile product of C's daug launch:
 //   cs[TM][N + 4] = A (TM x K) . B (K x N),  N = 32 WN
 // fill_a(k0) stages A[:, k0:k0+BK] into as[m * ALD + k]; fill_b(k0) stages
 // B[k0:k0+BK, :] into bs, row-major bs[k * (N + 8) + n] or, B_COL,
@@ -249,162 +231,6 @@ __device__ __forceinline__ void stage_tile(const bf16* __restrict__ src,
       dst[r * DLD + k] = (r0 + r < nrows && c0 + k < ncols)
                              ? src[(size_t)(r0 + r) * ncols + c0 + k]
                              : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B: stats forward, two passes (PASS2 = false: per-tile softmax partials;
-// true: posteriors, posts16 and the statistics).  Grid (C tiles of BN, B).
-// A 128-component tile per block builds each aug16 slice once for 128
-// columns, and each warp's A fragment serves four products.
-// ---------------------------------------------------------------------------
-constexpr int BN = 128;       // components per block of kernel B
-constexpr int BCL = BN + 4;   // f32 leading dim of its output tile
-
-size_t stats_fwd_smem(int d) {
-  const size_t stage = align_up(sizeof(bf16) * TM * ALD) +
-                       sizeof(bf16) * BK * (BN + 8);
-  const size_t out = sizeof(float) * TM * BCL;
-  size_t off = align_up(sizeof(float) * TM * d);
-  off = align_up(off + (stage > out ? stage : out));
-  off = align_up(off + sizeof(float) * BN * d);
-  return off + sizeof(float) * 2 * TM;
-}
-
-template <bool PASS2, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-stats_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ proj,
-                 const float* __restrict__ gconsts,
-                 const int* __restrict__ pairs, float* __restrict__ part,
-                 float* __restrict__ zeroth, float* __restrict__ first,
-                 bf16* __restrict__ posts16, int t_len, int d, int c) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int f_aug = d + d * (d + 1) / 2;
-  const int n_ct = (c + BN - 1) / BN;
-  const int ct = blockIdx.x, b = blockIdx.y, n0 = ct * BN;
-  const size_t stage = align_up(sizeof(bf16) * TM * ALD) +
-                       sizeof(bf16) * BK * (BN + 8);
-  const size_t out = sizeof(float) * TM * BCL;
-  size_t off = 0;
-  float* xs = reinterpret_cast<float*>(smem + off);    // [TM][d] x16 values
-  off = align_up(off + sizeof(float) * TM * d);
-  bf16* as = reinterpret_cast<bf16*>(smem + off);      // [TM][ALD]
-  bf16* bs = reinterpret_cast<bf16*>(                  // [BK][BN + 8]
-      smem + off + align_up(sizeof(bf16) * TM * ALD));
-  float* cs = reinterpret_cast<float*>(smem + off);    // [TM][BCL], over as/bs
-  off = align_up(off + (stage > out ? stage : out));
-  float* fs = reinterpret_cast<float*>(smem + off);    // [BN][d] first sums
-  off = align_up(off + sizeof(float) * BN * d);
-  float* row_m = reinterpret_cast<float*>(smem + off); // [TM]
-  float* row_s = row_m + TM;                           // [TM]
-
-  const float* xb = x + (size_t)b * t_len * d;
-  if (PASS2)
-    for (int i = threadIdx.x; i < BN * d; i += THREADS) fs[i] = 0.f;
-  float zacc = 0.f;
-
-  auto fill_a = [&](int k0) {  // aug16, 8 columns a thread, 16-byte stores
-    for (int i = threadIdx.x; i < TM * BK / 8; i += THREADS) {
-      const int m = i >> 3, k = (i & 7) * 8;
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)  // x16 and bf16(x16 x16) round exactly
-        v[j] = __float2bfloat16_rn(
-            aug_value(xs, d, m, k0 + k + j, d, f_aug, pairs));
-      *reinterpret_cast<uint4*>(as + m * ALD + k) =
-          *reinterpret_cast<const uint4*>(v);
-    }
-  };
-  auto fill_b = [&](int k0) {  // B[k][n] = proj16[k0 + k][n0 + n]
-    stage_tile<VEC, BN, BN + 8>(proj, k0, f_aug, n0, c, bs);
-  };
-
-  for (int t0 = 0; t0 < t_len; t0 += TM) {
-    for (int i = threadIdx.x; i < TM * d; i += THREADS) {
-      const int m = i / d;
-      xs[i] = (t0 + m < t_len) ? round_bf16(xb[(size_t)t0 * d + i]) : 0.f;
-    }
-    __syncthreads();
-    mma_tile<false, BN / 32>(f_aug, fill_a, fill_b, as, bs, cs);
-    for (int i = threadIdx.x; i < TM * BN; i += THREADS) {
-      const int m = i / BN, n = i % BN;
-      if (n0 + n < c) cs[m * BCL + n] += gconsts[n0 + n];
-    }
-    __syncthreads();
-
-    const int row = threadIdx.x >> 2, q = threadIdx.x & 3;  // 4 lanes a row
-    const bool row_ok = t0 + row < t_len;
-    if (!PASS2) {
-      float mx = -INFINITY;
-      for (int j = 0; j < BN / 4; ++j) {
-        const int n = q * (BN / 4) + j;
-        if (n0 + n < c) mx = fmaxf(mx, cs[row * BCL + n]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      float s = 0.f;
-      for (int j = 0; j < BN / 4; ++j) {
-        const int n = q * (BN / 4) + j;
-        if (n0 + n < c) s += expf(cs[row * BCL + n] - mx);
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (q == 0 && row_ok) {
-        float* p = part + ((size_t)(b * t_len + t0 + row) * n_ct + ct) * 2;
-        p[0] = mx;
-        p[1] = s;
-      }
-      __syncthreads();  // cs is rewritten by the next tile's product
-      continue;
-    }
-
-    // the frame's max and sum over every C tile, in tile order
-    if (q == 0) {
-      float mx = -INFINITY, s = 0.f;
-      if (row_ok) {
-        const float* p = part + (size_t)(b * t_len + t0 + row) * n_ct * 2;
-        for (int j = 0; j < n_ct; ++j) mx = fmaxf(mx, p[2 * j]);
-        for (int j = 0; j < n_ct; ++j) s += p[2 * j + 1] * expf(p[2 * j] - mx);
-      }
-      row_m[row] = mx;
-      row_s[row] = s;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < TM * BN; i += THREADS) {
-      const int m = i / BN, n = i % BN;
-      float p = 0.f;
-      if (t0 + m < t_len && n0 + n < c) {
-        p = expf(cs[m * BCL + n] - row_m[m]) / row_s[m];
-        posts16[(size_t)(b * t_len + t0 + m) * c + n0 + n] =
-            __float2bfloat16_rn(p);
-      }
-      cs[m * BCL + n] = p;
-    }
-    __syncthreads();
-    if (threadIdx.x < BN)
-      for (int m = 0; m < TM; ++m) zacc += cs[m * BCL + threadIdx.x];
-    __syncthreads();
-    for (int i = threadIdx.x; i < TM * BN; i += THREADS) {  // posts16
-      const int m = i / BN, n = i % BN;
-      cs[m * BCL + n] = round_bf16(cs[m * BCL + n]);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BN * d; i += THREADS) {
-      const int n = i / d, k = i % d;
-      float acc = fs[i];
-      for (int m = 0; m < TM; ++m) acc += cs[m * BCL + n] * xs[m * d + k];
-      fs[i] = acc;
-    }
-    __syncthreads();
-  }
-
-  if (PASS2) {
-    if (threadIdx.x < BN && n0 + threadIdx.x < c)
-      zeroth[(size_t)b * c + n0 + threadIdx.x] = zacc;
-    for (int i = threadIdx.x; i < BN * d; i += THREADS) {
-      const int n = i / d;
-      if (n0 + n < c) first[((size_t)b * c + n0) * d + i] = fs[i];
     }
   }
 }
@@ -658,38 +484,6 @@ extern "C" int sg_fused_loglike(const float* x, const float* proj,
   kernel<<<grid, THREADS, smem, s>>>(x, proj, gconsts, pairs, out, rows, d,
                                      c);
   return (int)cudaGetLastError();
-}
-
-// B.  x (b, t, d) f32, proj (d + d(d+1)/2, c) bf16, gconsts (c,) f32 ->
-// zeroth (b, c) f32, first (b, c, d) f32, posts16 (b, t, c) bf16; part is
-// (b, t, ceil(c / 128), 2) f32 scratch.
-extern "C" int sg_stats_fwd(const float* x, const void* proj,
-                            const float* gconsts, const int* pairs,
-                            float* part, float* zeroth, float* first,
-                            void* posts16, int b, int t, int d, int c,
-                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = stats_fwd_smem(d);
-  const bf16* p16 = static_cast<const bf16*>(proj);
-  bf16* post = static_cast<bf16*>(posts16);
-  const dim3 grid((c + BN - 1) / BN, b);
-  auto run = [&](auto pass1, auto pass2) {
-    cudaError_t err = prepare(pass1, smem);
-    if (err == cudaSuccess) err = prepare(pass2, smem);
-    if (err != cudaSuccess) return err;
-    pass1<<<grid, THREADS, smem, s>>>(x, p16, gconsts, pairs, part, zeroth,
-                                      first, post, t, d, c);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    pass2<<<grid, THREADS, smem, s>>>(x, p16, gconsts, pairs, part, zeroth,
-                                      first, post, t, d, c);
-    return cudaGetLastError();
-  };
-  if (c % 8 == 0)
-    return (int)run(stats_fwd_kernel<false, true>,
-                    stats_fwd_kernel<true, true>);
-  return (int)run(stats_fwd_kernel<false, false>,
-                  stats_fwd_kernel<true, false>);
 }
 
 // C.  x (b, t, d) f32, proj (d + d(d+1)/2, c) bf16, posts16 (b, t, c) bf16,

@@ -23,19 +23,36 @@ reference):
 
 The plain versions emulate "bf16 operands, f32 accumulation" by up-casting
 the bf16-rounded operands to float32 before each product (a product of two
-bf16 values is exact in float32).  ``stats_fwd``/``stats_bwd`` launch kernels
-B and C of ``csrc/gmm.cu`` on CUDA tensors and run the plain versions on CPU
-tensors.
+bf16 values is exact in float32).  On CUDA tensors ``stats_fwd`` runs the
+three launches of ``csrc/gmm_stats_fwd.cu`` on the N = B T flattened rows
+(each with a plain version here, which the card's checks compare it with):
+
+  1. ``augment16_padded``: aug16 (N, F_pad) bf16, F_pad = round_up(F, 64);
+  2. ``loglike_partials``: loglike = aug16 . projK^T + gconsts in f32 on
+     TMA + wgmma, with projK = ``proj_kmajor(proj16)`` (C, F_pad), and the
+     per-(row, 256-column tile) softmax partials (max, sum exp(l - max));
+  3. ``normalise_stats``: posts from the combined partials, posts16,
+     zeroth and first.
+
+``stats_bwd`` launches kernel C of ``csrc/gmm.cu``.  On CPU tensors both
+run their plain versions.
 """
 
-import torch
+import ctypes
+import functools
 
-from speakerguard_tpu_torch.ops._build import KernelWrapper, check_rc
+import torch
+import torch.nn.functional as F
+
+from speakerguard_tpu_torch.ops._build import (KernelWrapper, check_rc,
+                                               load_library)
 from speakerguard_tpu_torch.ops.gmm_loglike import (_library, check_operands,
                                                     packed_indices,
                                                     pair_table)
 
-C_TILE = 128  # components per block of kernel B (its softmax partials)
+K_TILE = 64  # aug16 / projK columns are padded to this (one TMA box row)
+N_TILE = 256  # loglike columns of one softmax partial (the GEMM's tile)
+MAX_D_CARD = 128  # the normalise launch holds D / 16 accumulators of first
 ROW_TILE = 64  # frames per block of kernel C's daug launch, and F columns
 BLOCKS_WANTED = 1056  # 8 blocks' worth per SM of an H100's 132
 
@@ -100,6 +117,175 @@ def stats_bwd_plain(x: torch.Tensor, proj16: torch.Tensor,
     return dx + posts @ df16
 
 
+def padded_k(f: int) -> int:
+    """F rounded up to whole 64-column K tiles."""
+    return -(-f // K_TILE) * K_TILE
+
+
+def augment16_padded_plain(x: torch.Tensor) -> torch.Tensor:
+    """x (..., D) f32 -> aug16 (N, F_pad) bf16 over the flattened rows:
+    [x16, bf16(x16[r] x16[c])] and zero pad columns."""
+    d = x.shape[-1]
+    x16 = _bf(x.reshape(-1, d))
+    rows, cols = packed_indices(d, x.device)
+    aug = torch.cat([x16, _bf(x16[:, rows] * x16[:, cols])], dim=-1)
+    return F.pad(aug, (0, padded_k(aug.shape[-1]) - aug.shape[-1])).to(
+        torch.bfloat16)
+
+
+def proj_kmajor(proj16: torch.Tensor) -> torch.Tensor:
+    """proj16 (F, C) bf16 -> projK (C, F_pad) bf16, K-major with zero pad
+    columns: the GEMM's B operand, rows 128-byte aligned for TMA."""
+    f, c = proj16.shape
+    out = proj16.new_zeros((c, padded_k(f)))
+    out[:, :f] = proj16.T
+    return out
+
+
+def tile_partials(loglike: torch.Tensor) -> torch.Tensor:
+    """loglike (N, C) -> part (N, ceil(C / 256), 2): each 256-column tile's
+    max and sum of exp(l - max) over its columns < C."""
+    c = loglike.shape[-1]
+    n_ct = -(-c // N_TILE)
+    tiles = F.pad(loglike, (0, n_ct * N_TILE - c), value=-torch.inf
+                  ).reshape(-1, n_ct, N_TILE)
+    m = tiles.amax(dim=-1)
+    s = torch.exp(tiles - m[..., None]).sum(dim=-1)
+    return torch.stack([m, s], dim=-1)
+
+
+def loglike_partials_plain(aug16: torch.Tensor, projk: torch.Tensor,
+                           gconsts: torch.Tensor):
+    """aug16 (N, F_pad), projK (C, F_pad) bf16, gconsts (C,) f32 ->
+    (loglike (N, C) f32, its ``tile_partials``)."""
+    loglike = aug16.to(torch.float32) @ projk.to(torch.float32).T + gconsts
+    return loglike, tile_partials(loglike)
+
+
+def combine_partials(part: torch.Tensor):
+    """part (N, tiles, 2) -> each row's max and sum of exp(l - max) (N, 1)
+    over all its columns."""
+    m = part[..., 0].amax(dim=-1, keepdim=True)
+    s = (part[..., 1] * torch.exp(part[..., 0] - m)).sum(dim=-1,
+                                                         keepdim=True)
+    return m, s
+
+
+def normalise_stats_plain(loglike: torch.Tensor, part: torch.Tensor,
+                          x: torch.Tensor):
+    """loglike (N, C) f32 and its partials, x (B, T, D) f32 -> (zeroth
+    (B, C), first (B, C, D), posts16 (B, T, C))."""
+    b, t, d = x.shape
+    m, s = combine_partials(part)
+    posts = (torch.exp(loglike - m) / s).reshape(b, t, -1)
+    posts16 = posts.to(torch.bfloat16)
+    first = posts16.to(torch.float32).mT @ _bf(x)
+    return posts.sum(dim=-2), first, posts16
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_library() -> ctypes.CDLL:
+    """csrc/gmm_stats_fwd.cu, built at first use, with its three C entry
+    points (one per launch) declared."""
+    lib = load_library("gmm_stats_fwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sg_stats_fwd_aug16.argtypes = [p, p, p, i, i, i, p]
+    lib.sg_stats_fwd_loglike.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.sg_stats_fwd_normalise.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
+                                           p]
+    for fn in (lib.sg_stats_fwd_aug16, lib.sg_stats_fwd_loglike,
+               lib.sg_stats_fwd_normalise):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch), False on the CPU (plain version);
+    raises on any other device."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"stats_fwd runs on cuda or cpu, not {t.device}")
+    return t.device.type == "cuda"
+
+
+def augment16_padded(x: torch.Tensor) -> torch.Tensor:
+    """Launch 1 of ``stats_fwd``: ``augment16_padded_plain``'s function."""
+    if not _on_card(x):
+        return augment16_padded_plain(x)
+    d = x.shape[-1]
+    xc = x.contiguous()
+    rows = xc.numel() // d
+    pairs = pair_table(d, x.device)
+    aug16 = torch.empty((rows, padded_k(d + d * (d + 1) // 2)),
+                        dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _fwd_library().sg_stats_fwd_aug16(
+            xc.data_ptr(), pairs.data_ptr(), aug16.data_ptr(), rows, d,
+            aug16.shape[1], torch.cuda.current_stream().cuda_stream)
+    check_rc(rc, "stats_fwd (aug16)")
+    return aug16
+
+
+def loglike_partials(aug16: torch.Tensor, projk: torch.Tensor,
+                     gconsts: torch.Tensor):
+    """Launch 2 of ``stats_fwd``: ``loglike_partials_plain``'s function.
+    On the card loglike is an (N, C) view of an (N, round_up(C, 256))
+    buffer."""
+    if not _on_card(aug16):
+        return loglike_partials_plain(aug16, projk, gconsts)
+    rows, f_pad = aug16.shape
+    c = projk.shape[0]
+    if (projk.shape[1] != f_pad or f_pad % K_TILE or gconsts.shape != (c,)
+            or aug16.dtype != torch.bfloat16 or projk.dtype != torch.bfloat16
+            or gconsts.dtype != torch.float32
+            or not (aug16.is_contiguous() and projk.is_contiguous())):
+        raise ValueError(f"loglike_partials: aug16 {tuple(aug16.shape)}, "
+                         f"projK {tuple(projk.shape)}, gconsts "
+                         f"{tuple(gconsts.shape)}")
+    n_ct = -(-c // N_TILE)
+    gc = gconsts.contiguous()
+    loglike = torch.empty((rows, n_ct * N_TILE), dtype=torch.float32,
+                          device=aug16.device)
+    part = torch.empty((rows, n_ct, 2), dtype=torch.float32,
+                       device=aug16.device)
+    with torch.cuda.device(aug16.device):
+        rc = _fwd_library().sg_stats_fwd_loglike(
+            aug16.data_ptr(), projk.data_ptr(), gc.data_ptr(),
+            loglike.data_ptr(), part.data_ptr(), rows, c, f_pad,
+            torch.cuda.current_stream().cuda_stream)
+    check_rc(rc, "stats_fwd (loglike GEMM)")
+    return loglike[:, :c], part
+
+
+def normalise_stats(loglike: torch.Tensor, part: torch.Tensor,
+                    x: torch.Tensor):
+    """Launch 3 of ``stats_fwd``: ``normalise_stats_plain``'s function.
+    loglike may have a row stride larger than C."""
+    if not _on_card(x):
+        return normalise_stats_plain(loglike, part, x)
+    b, t, d = x.shape
+    c = loglike.shape[1]
+    if (d > MAX_D_CARD or loglike.shape[0] != b * t or loglike.stride(1) != 1
+            or part.shape != (b * t, -(-c // N_TILE), 2)
+            or not part.is_contiguous() or x.dtype != torch.float32
+            or loglike.dtype != torch.float32 or part.dtype != torch.float32):
+        raise ValueError(f"normalise_stats: loglike {tuple(loglike.shape)}, "
+                         f"part {tuple(part.shape)}, x {tuple(x.shape)} "
+                         f"(D <= {MAX_D_CARD} on the card)")
+    xc = x.contiguous()
+    dev = x.device
+    zeroth = torch.empty((b, c), dtype=torch.float32, device=dev)
+    first = torch.empty((b, c, d), dtype=torch.float32, device=dev)
+    posts16 = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        rc = _fwd_library().sg_stats_fwd_normalise(
+            loglike.data_ptr(), loglike.stride(0), part.data_ptr(),
+            xc.data_ptr(), zeroth.data_ptr(), first.data_ptr(),
+            posts16.data_ptr(), b, t, d, c,
+            torch.cuda.current_stream().cuda_stream)
+    check_rc(rc, "stats_fwd (normalise)")
+    return zeroth, first, posts16
+
+
 def _check(x, proj16, gconsts):
     check_operands(x, proj16, gconsts, torch.bfloat16)
     if x.ndim != 3 or 0 in x.shape:
@@ -116,26 +302,11 @@ class _StatsFwd(KernelWrapper):
         _check(x, proj16, gconsts)
         if not self.route(x):
             return stats_fwd_plain(x, proj16, gconsts)
-        b, t, d = x.shape
-        c = proj16.shape[1]
-        dev = x.device
-        xc, projc, gc = (t.contiguous() for t in (x, proj16, gconsts))
-        pairs = pair_table(d, dev)
-        zeroth = torch.empty((b, c), dtype=torch.float32, device=dev)
-        first = torch.empty((b, c, d), dtype=torch.float32, device=dev)
-        posts16 = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
-        part = torch.empty((b, t, -(-c // C_TILE), 2), dtype=torch.float32,
-                           device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = _library().sg_stats_fwd(
-                xc.data_ptr(), projc.data_ptr(), gc.data_ptr(),
-                pairs.data_ptr(), part.data_ptr(),
-                zeroth.data_ptr(), first.data_ptr(), posts16.data_ptr(), b, t,
-                d, c, stream)
-        check_rc(rc, self.name)
+        loglike, part = loglike_partials(augment16_padded(x),
+                                         proj_kmajor(proj16), gconsts)
+        out = normalise_stats(loglike, part, x)
         self.launches += 1
-        return zeroth, first, posts16
+        return out
 
 
 class _StatsBwd(KernelWrapper):

@@ -16,7 +16,8 @@ import torch
 
 from speakerguard_tpu.models import gmm as G
 from speakerguard_tpu.ops.pallas_gmm import fused_loglike_batch
-from speakerguard_tpu.ops.pallas_gmm_stats import (_stats_bwd, _stats_fwd,
+from speakerguard_tpu.ops.pallas_gmm_stats import (_build_aug, _stats_bwd,
+                                                   _stats_fwd,
                                                    fused_stats as jax_fused)
 
 from speakerguard_tpu_torch.models import gmm as TG
@@ -25,6 +26,10 @@ from speakerguard_tpu_torch.ops import gmm_stats as S
 
 # bf16 keeps 7 fraction bits: one ulp is at most 2^-7 of the value.
 BF16_ULP = 2.0 ** -7
+# The smallest normal f32 (and bf16): at D = 72 some posteriors fall below
+# it, where XLA on the CPU flushes them to zero and bf16's ulp stops
+# shrinking with the value.
+FTZ_FLOOR = 2.0 ** -126
 
 
 def _gmm(seed, c=128, d=10):
@@ -43,16 +48,17 @@ def _feats(seed, b=2, t=37, d=10):
         np.float32)
 
 
-def _assert_bf16_close(got16, want16, max_share):
+def _assert_bf16_close(got16, want16, max_share, floor=0.0):
     """bf16 tensors equal except on at most ``max_share`` of the entries,
     which may differ by one bf16 ulp: where an f32 value lies within an f32
-    ulp of a bf16 rounding boundary, a different f32 sum order flips it."""
+    ulp of a bf16 rounding boundary, a different f32 sum order flips it.
+    Differences up to ``floor`` pass and are not counted (FTZ_FLOOR)."""
     got = got16.to(torch.float32).numpy()
     want = np.asarray(want16, np.float32)
     diff = np.abs(got - want)
-    assert np.all(diff <= BF16_ULP * np.maximum(np.abs(got), np.abs(want))
-                  ), diff.max()
-    assert np.mean(diff > 0) <= max_share, np.mean(diff > 0)
+    assert np.all(diff <= np.maximum(
+        BF16_ULP * np.maximum(np.abs(got), np.abs(want)), floor)), diff.max()
+    assert np.mean(diff > floor) <= max_share, np.mean(diff > floor)
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +167,90 @@ def test_stats_fwd_plain_matches_jax_kernel(b, t, d, c):
     bound = (np.einsum("btc,btd->bcd", flips, np.abs(S._bf(
         torch.tensor(x)).numpy())) + 1e-5 * float(np.abs(jf).max()))
     assert np.all(np.abs(f.numpy() - np.asarray(jf)) <= bound)
+
+
+# the forward's three launches (csrc/gmm_stats_fwd.cu), each by its plain
+# version: D = 6, 10 and the model's 72; C = 200 and 64 leave the last
+# 256-column softmax tile ragged
+LAUNCH_SHAPES = [(2, 37, 10, 128), (3, 20, 6, 200), (2, 9, 72, 64)]
+
+
+@pytest.mark.parametrize("b,t,d,c", LAUNCH_SHAPES)
+def test_stats_fwd_launches_compose_to_plain_and_jax(b, t, d, c):
+    """aug16 -> loglike GEMM with softmax partials -> normalise-and-stats,
+    run through the launch helpers on CPU tensors (their plain versions),
+    against stats_fwd_plain (f32 sums in another order: 1e-5 of the scale;
+    posts16 equal but for one-ulp flips on at most 1% of the entries) and
+    against _stats_fwd(interpret=True) at
+    test_stats_fwd_plain_matches_jax_kernel's tolerances."""
+    jp, proj16, tp = _gmm(b * t + 2, c, d)
+    x = _feats(b + t + 2, b, t, d)
+    xt = torch.tensor(x)
+    loglike, part = S.loglike_partials(S.augment16_padded(xt),
+                                       S.proj_kmajor(tp["proj16"]),
+                                       tp["gconsts"])
+    z, f, post16 = S.normalise_stats(loglike, part, xt)
+    assert z.shape == (b, c) and f.shape == (b, c, d)
+    assert post16.shape == (b, t, c) and post16.dtype == torch.bfloat16
+    zw, fw, pw = S.stats_fwd_plain(xt, tp["proj16"], tp["gconsts"])
+    np.testing.assert_allclose(z.numpy(), zw.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(zw.abs().max()))
+    _assert_bf16_close(post16, pw.float().numpy(), 0.01, FTZ_FLOOR)
+
+    jz, jf, jpost = _stats_fwd(jnp.asarray(x), proj16, jp.gconsts,
+                               interpret=True)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jz).max()))
+    jp16 = np.asarray(jpost[:, :t].astype(jnp.float32))
+    _assert_bf16_close(post16, jp16, 0.01, FTZ_FLOOR)
+    for want, want16 in ((fw.numpy(), pw.float().numpy()),
+                         (np.asarray(jf), jp16)):
+        flips = np.abs(post16.float().numpy() - want16)
+        bound = (np.einsum("btc,btd->bcd", flips, np.abs(S._bf(xt).numpy()))
+                 + 1e-5 * float(np.abs(want).max()))
+        assert np.all(np.abs(f.numpy() - want) <= bound)
+
+
+@pytest.mark.parametrize("d", [6, 10, 72])
+def test_aug16_and_projk_are_padded_with_zeros(d):
+    """aug16's columns equal the JAX kernel's bf16 augmentation (_build_aug,
+    the same roundings) bit for bit, and its pad columns up to the 64-column
+    K tile are exactly zero; projK is proj16^T with exactly zero pad
+    columns."""
+    f = L.aug_dim(d)
+    x = _feats(d, 2, 7, d)
+    aug16 = S.augment16_padded(torch.tensor(x))
+    f_pad = S.padded_k(f)
+    assert aug16.shape == (14, f_pad) and f_pad % 64 == 0 and f_pad - f < 64
+    want = np.asarray(_build_aug(jnp.asarray(x.reshape(14, d)), d, f, f,
+                                 jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(aug16[:, :f].float().numpy(), want)
+    assert not aug16[:, f:].float().any()
+    _, _, tp = _gmm(d, 96, d)
+    projk = S.proj_kmajor(tp["proj16"])
+    assert projk.shape == (96, f_pad) and projk.dtype == torch.bfloat16
+    assert torch.equal(projk[:, :f], tp["proj16"].T)
+    assert not projk[:, f:].float().any()
+
+
+@pytest.mark.parametrize("c", [64, 200, 2048])
+def test_partials_combine_to_row_max_and_logsumexp(c):
+    """The per-256-column partials of loglike_partials_plain, combined in
+    tile order, give each row's max exactly and its log-sum-exp to 1e-6
+    relative: the ragged last tile (C = 64, 200) leaves its pad columns out
+    (each would add exp(gconsts - max) to the sum)."""
+    d = 10
+    _, _, tp = _gmm(c, c, d)
+    xt = torch.tensor(_feats(c + 1, 2, 11, d))
+    loglike, part = S.loglike_partials(S.augment16_padded(xt),
+                                       S.proj_kmajor(tp["proj16"]),
+                                       tp["gconsts"])
+    assert part.shape == (22, -(-c // 256), 2)
+    m, s = S.combine_partials(part)
+    assert torch.equal(m[:, 0], loglike.amax(dim=-1))
+    lse = torch.logsumexp(loglike.double(), dim=-1)
+    np.testing.assert_allclose((m[:, 0] + torch.log(s[:, 0])).double(), lse,
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("b,t,d,c", [(2, 37, 10, 128), (3, 20, 6, 200)])
@@ -385,3 +475,27 @@ def test_cuda_stats_kernels_match_plain(b, t, d, c):
     assert (S.stats_fwd.launches, S.stats_bwd.launches) == (1, 1)
     want = S.stats_bwd_plain(x, proj16, post16, dz, df)
     _assert_grad_close(dx.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,c", CARD_SHAPES)
+def test_cuda_stats_fwd_launches_match_plain(b, t, d, c):
+    """Each of stats_fwd's launches against its plain version on the same
+    inputs (chip_smoke.py phase_stats_fwd_launches gives the reasons): aug16
+    torch.equal; the GEMM's loglike within 2e-6 of the largest sum of
+    absolute terms; the tile maxima equal and the sums within 1e-5
+    relative of the plain partials of the kernel's own loglike."""
+    p, x, _ = _card_inputs(b, t, d, c)
+    aug16 = S.augment16_padded(x)
+    assert torch.equal(aug16, S.augment16_padded_plain(x))
+    projk = S.proj_kmajor(p.quad_proj.to(torch.bfloat16))
+    loglike, part = S.loglike_partials(aug16, projk, p.gconsts)
+    torch.cuda.synchronize()
+    want, _ = S.loglike_partials_plain(aug16, projk, p.gconsts)
+    terms = (aug16.float().abs() @ projk.float().abs().T
+             + p.gconsts.abs()).max()
+    assert float((loglike - want).abs().max()) <= 2e-6 * float(terms)
+    part_k = S.tile_partials(loglike)
+    assert torch.equal(part[..., 0], part_k[..., 0])
+    assert float(((part[..., 1] - part_k[..., 1]).abs()
+                  / part_k[..., 1]).max()) <= 1e-5
