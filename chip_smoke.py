@@ -12,12 +12,13 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi); exits non-zero
               when torch sees no CUDA card.
   2. build    nvcc builds the port's kernel sources, csrc/chol.cu,
-              csrc/gmm.cu and csrc/gmm_stats_fwd.cu, one process each, side
-              by side, into csrc/_build/.
+              csrc/gmm.cu, csrc/gmm_stats_fwd.cu and csrc/gmm_stats_bwd.cu,
+              one process each, side by side, into csrc/_build/.
   3. launch   each of stats_fwd's three launches (aug16, the loglike GEMM
-              with its softmax partials, normalise-and-stats) against its
-              plain version at the main and ragged shapes, with its
-              CUDA-event time at the main shape.
+              with its softmax partials, normalise-and-stats) and of
+              stats_bwd's three (dl and the direct term, the daug GEMM, the
+              chain rule and sum) against its plain version at the main and
+              ragged shapes, with its CUDA-event time at the main shape.
   4. kernel   each kernel against its plain PyTorch version on the card at
               the main path's shapes and at ragged ones: error, CUDA-event
               times of the kernel, the plain version and one PyTorch library
@@ -28,7 +29,9 @@ Phases, one JSON line each:
               identity); chol_solve (against plain and float64);
               fused_loglike, stats_fwd and stats_bwd (the latter on the
               posts16 stats_fwd produced); stats_fwd also beside the same
-              bf16 addmm on the 64-column-padded operands its GEMM takes.
+              bf16 addmm on the 64-column-padded operands its GEMM takes,
+              stats_bwd also beside its own product bf16(dl) . proj16^T as
+              one torch.mm with an f32 output.
   5. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
               R=200, weights from a numpy seed), 10 enrolled speakers, task
               CSI-E, 64 utterances of 3 s; make_decision, then PGD (10
@@ -53,8 +56,8 @@ Phases, one JSON line each:
  10. rounds   (--rounds N) ms per PGD iteration of slice_fast_default,
               slice_chol_dinv and slice_chol_solve, N rounds, the order
               rotated each round: the three differ only in the SPD solver.
- 11. kernels  one line listing every ported kernel (stats_fwd with the
-              time of each of its launches).
+ 11. kernels  one line listing every ported kernel (stats_fwd and
+              stats_bwd with the time of each of their launches).
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -568,6 +571,125 @@ def phase_stats_fwd_launches(torch):
     return main
 
 
+# stats_bwd's launches also at a C that is no multiple of 8: the posts16
+# loads go scalar and both TMA operands are zero-padded copies
+BWD_SHAPES = GMM_SHAPES + [(2, 45, 6, 100)]
+
+
+def phase_stats_bwd_launches(torch):
+    """stats_bwd's three launches, each against its plain version on the
+    same inputs (posts16 from stats_fwd, each launch fed the kernel output
+    of the one before), at BWD_SHAPES.  Tolerances, with their reasons:
+      dl      bf16(dl) within one bf16 ulp of the plain f32 dl (2^-7 of
+              the value, or bf16's subnormal spacing 2^-133 where a tiny
+              posterior makes dl subnormal), plus posts x 1e-5 of
+              the row's largest sum of absolute terms of dp (|dz| + |x16|
+              |df16|): the kernel adds dp's exact products in another
+              order (tensor cores) and the row sum sum_c posts dp as
+              sum_c posts dz + x16 . (posts16 . df16), summed over c first,
+              so where dp - sum_c posts dp cancels, f32 round-off moves dl
+              by that much before its one rounding;
+      direct  2e-6 of the largest sum of absolute terms (|posts16| |df16|):
+              exact products summed in another order;
+      daug    2e-6 of the largest sum of absolute terms (|dl16| |proj16|^T),
+              the loglike GEMM's bar;
+      chain   1e-6 of the largest sum of absolute terms (chain_sum_plain of
+              |daug|, |x|, |direct|): f32 sums of D + 3 terms in another
+              order.
+    Returns {launch: main-shape record}."""
+    from speakerguard_tpu_torch.ops import gmm_stats as S
+    main = {}
+    for b, t, d, c in BWD_SHAPES:
+        is_main = (b, t, d, c) == GMM_SHAPES[0]
+        p, x, dz, df = gmm_inputs(torch, b, t, d, c)
+        proj16 = p.quad_proj.to(torch.bfloat16)
+        f = d + d * (d + 1) // 2
+        shape = {"B": b, "T": t, "D": d, "C": c, "N": b * t, "F": f}
+        post16 = S.stats_fwd(x, proj16, p.gconsts)[2]
+
+        dl16, direct = S.dl_direct(x, post16, dz, df)
+        torch.cuda.synchronize()
+        dl_w = S.dl_plain(x, post16, dz, df)
+        _, direct_w = S.dl_direct_plain(x, post16, dz, df)
+        posts = post16.reshape(b * t, c).float()
+        dp_terms = (dz.abs()[:, None, :] + S._bf(x).abs()
+                    @ S._bf(df).abs().mT).amax(dim=-1).reshape(-1, 1)
+        got = dl16.float()
+        ulp = torch.clamp_min(
+            2.0 ** -7 * torch.maximum(dl_w.abs(), got.abs()), 2.0 ** -133)
+        bound = ulp + 1e-5 * posts * dp_terms
+        dl_err = (got - dl_w).abs()
+        recs = {"dl": {
+            "max_abs_err": float(dl_err.max()),
+            "max_err_over_bound": float((dl_err / bound).max()),
+            "share_differing_from_rounded_plain": float(
+                (dl16 != dl_w.to(torch.bfloat16)).float().mean()),
+            "pad_columns_zero": True,
+            "tolerance": ("one bf16 ulp + posts 1e-5 max_c(|dz| + "
+                          "|x16||df16|)"),
+            "ok": bool((dl_err <= bound).all())}}
+        if dl16.stride(0) > c:  # the (N, ldc) buffer's pad columns
+            pad = dl16.as_strided((b * t, dl16.stride(0) - c),
+                                  (dl16.stride(0), 1), c)
+            recs["dl"]["pad_columns_zero"] = bool((pad == 0).all())
+            recs["dl"]["ok"] &= recs["dl"]["pad_columns_zero"]
+        terms = float((post16.float() @ S._bf(df).abs()).max())
+        err = float((direct - direct_w).abs().max())
+        recs["direct"] = {"max_abs_err": err, "max_abs_terms": terms,
+                          "tolerance": 2e-6 * terms,
+                          "ok": err <= 2e-6 * terms}
+
+        daug = S.daug_gemm(dl16, proj16)
+        torch.cuda.synchronize()
+        daug_w = S.daug_plain(dl16, proj16)
+        terms = float((dl16.float().abs() @ proj16.float().abs().T).max())
+        err = float((daug - daug_w).abs().max())
+        recs["daug_gemm"] = {"max_abs_err": err,
+                             "max_abs_daug": float(daug_w.abs().max()),
+                             "max_abs_terms": terms,
+                             "tolerance": 2e-6 * terms,
+                             "ok": err <= 2e-6 * terms}
+        del daug_w
+
+        dx = S.chain_sum(daug, x, direct)
+        torch.cuda.synchronize()
+        dx_w = S.chain_sum_plain(daug, x, direct)
+        terms = float(S.chain_sum_plain(daug.abs(), x.abs(),
+                                        direct.abs()).max())
+        err = float((dx - dx_w).abs().max())
+        recs["chain_sum"] = {"max_abs_err": err,
+                             "max_abs_dx": float(dx_w.abs().max()),
+                             "max_abs_terms": terms,
+                             "tolerance": 1e-6 * terms,
+                             "ok": err <= 1e-6 * terms}
+        del dx_w
+
+        if is_main:
+            n = b * t
+            timing = {
+                "dl": lambda: S.dl_direct(x, post16, dz, df),
+                "daug_gemm": lambda: S.daug_gemm(dl16, proj16),
+                "chain_sum": lambda: S.chain_sum(daug, x, direct)}
+            for name, fn in timing.items():
+                recs[name]["ms"] = cuda_ms(fn, 3, 20)
+            gemm = recs["daug_gemm"]
+            gemm["tflops"] = 2.0 * n * f * c / gemm["ms"] / 1e9
+            gemm["bf16_peak_share"] = gemm["tflops"] * 1e12 / BF16_FLOPS
+            gemm["library_ms"] = cuda_ms(lambda: torch.mm(
+                dl16, proj16.T, out_dtype=torch.float32), 3, 20)
+            gemm["library_call"] = ("torch.mm(dl16, proj16.T, "
+                                    "out_dtype=torch.float32)")
+        for name, rec in recs.items():
+            rec = {"phase": "launch", "kernel": "stats_bwd", "launch": name,
+                   "case": "main" if is_main else "ragged", **shape, **rec}
+            emit(rec)
+            if not rec["ok"]:
+                raise RuntimeError(f"stats_bwd {name} {shape}: {rec}")
+            if is_main:
+                main[name] = rec
+    return main
+
+
 def phase_gmm_kernels(torch):
     """fused_loglike, stats_fwd and stats_bwd against their plain versions
     at the main path's shape (64 x 300 frames, D=72, C=2048) and at ragged
@@ -666,7 +788,14 @@ def phase_gmm_kernels(torch):
                 lambda: torch.addmm(g16, aug16_pad, projk.T), 2, 10)
             recs["stats_fwd"]["library_aligned_call"] = (
                 "torch.addmm(gconsts, aug16 padded to 2752 columns, projK^T)")
-            del aug, aug16, aug16_pad
+            # the backward's dominant product on its own operands
+            dl16 = S.dl_direct_plain(x, post16, dz, df)[0]
+            recs["stats_bwd"]["library_bwd_product_ms"] = cuda_ms(
+                lambda: torch.mm(dl16, proj16.T, out_dtype=torch.float32),
+                2, 10)
+            recs["stats_bwd"]["library_bwd_product_call"] = (
+                "torch.mm(bf16(dl), proj16.T, out_dtype=torch.float32)")
+            del aug, aug16, aug16_pad, dl16
         for name, rec in recs.items():
             rec = {"phase": "kernel", "kernel": name,
                    "case": "main" if is_main else "ragged", **shape, **rec}
@@ -889,7 +1018,7 @@ def main(argv):
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    sources = ("chol", "gmm", "gmm_stats_fwd")
+    sources = ("chol", "gmm", "gmm_stats_fwd", "gmm_stats_bwd")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -899,6 +1028,7 @@ def main(argv):
                     for src, log in logs.items()}})
 
     launch_recs = phase_stats_fwd_launches(torch)
+    bwd_launch_recs = phase_stats_bwd_launches(torch)
     recs = {"cholesky_rt": phase_kernels(torch, chol),
             "cholesky_rt_dinv": phase_chol_dinv(torch, chol),
             "chol_solve": phase_chol_solve(torch, chol),
@@ -933,7 +1063,7 @@ def main(argv):
         "stats_fwd": ("speakerguard_tpu_torch/csrc/gmm_stats_fwd.cu",
                       "speakerguard_tpu/ops/pallas_gmm_stats.py:179",
                       "slice_fast_kernels"),
-        "stats_bwd": (gmm_src,
+        "stats_bwd": ("speakerguard_tpu_torch/csrc/gmm_stats_bwd.cu",
                       "speakerguard_tpu/ops/pallas_gmm_stats.py:226",
                       "slice_fast_kernels")}
     kernels = []
@@ -949,6 +1079,11 @@ def main(argv):
     fwd = next(k for k in kernels if k["name"] == "stats_fwd")
     fwd["library_aligned_ms"] = recs["stats_fwd"]["library_aligned_ms"]
     fwd["launch_ms"] = {k: v["ms"] for k, v in launch_recs.items()
+                        if "ms" in v}
+    bwd = next(k for k in kernels if k["name"] == "stats_bwd")
+    bwd["library_bwd_product_ms"] = recs["stats_bwd"][
+        "library_bwd_product_ms"]
+    bwd["launch_ms"] = {k: v["ms"] for k, v in bwd_launch_recs.items()
                         if "ms" in v}
     emit({"kernels": kernels})
     print(smi, flush=True)

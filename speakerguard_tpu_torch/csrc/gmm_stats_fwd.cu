@@ -23,21 +23,14 @@
 //                           with projK (C, F_pad) the K-major copy of proj16
 //                           the wrapper builds, and per (row, 256-column
 //                           tile) softmax partials (max, sum exp(l - max))
-//                           over the columns < C.  A 128 x 256 output tile
-//                           at a time, a persistent block per SM: one
-//                           producer warp keeps TMA loads of A 128 x 64 and
-//                           B 256 x 64 (128-byte swizzle) in flight in a ring
-//                           of 4 stages (48 KB each), running ahead into the
-//                           next tile during the epilogue; two consumer
-//                           warpgroups issue wgmma m64n256k16 from shared
-//                           memory, 128 f32 accumulators a thread;
-//                           setmaxnreg moves registers from producer to
-//                           consumers.  The C tiles of one row tile are
-//                           neighbours in tile order, so the A row tile is
-//                           read from L2.  TMA fills rows >= N
-//                           and columns >= C with zeros; they are left out
-//                           of the partials and of the stores that matter
-//                           (ld = round_up(C, 256), columns >= C are scratch).
+//                           over the columns < C.  The persistent TMA +
+//                           wgmma GEMM of wgmma_gemm.cuh (128 x 256 tiles,
+//                           a 4-stage TMA ring, two consumer warpgroups on
+//                           wgmma m64n256k16) with this epilogue.  TMA
+//                           fills rows >= N and columns >= C with zeros;
+//                           they are left out of the partials and of the
+//                           stores that matter (ld = round_up(C, 256),
+//                           columns >= C are scratch).
 //  3  normalise_stats_kernel  a block per (utterance, 128 components) walks
 //                           T in 64-frame chunks in a fixed order (sums are
 //                           reproducible, no atomics): combines each frame's
@@ -58,32 +51,16 @@
 // Every C entry point returns cudaGetLastError() after its launch; a tensor
 // map that cannot be encoded returns 10000 + its CUresult.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__host__ __device__ __forceinline__ size_t align_up(size_t v) {
-  return (v + 127) / 128 * 128;
-}
-
-template <class K>
-cudaError_t prepare(K kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -137,350 +114,77 @@ aug16_kernel(const float* __restrict__ x, const int* __restrict__ pairs,
 }
 
 // ---------------------------------------------------------------------------
-// 2: the loglike GEMM on TMA + wgmma.
+// 2: the loglike GEMM (wgmma_gemm.cuh) with an epilogue that adds gconsts,
+// writes the loglike (ld = n_ct 256 columns, columns >= c are scratch) and
+// each row's softmax partials over the 256-column tile's columns < c.
 // ---------------------------------------------------------------------------
-constexpr int GM = 128;                    // rows of an output tile
-constexpr int GN = 256;                    // columns: one wgmma n256
-constexpr int GK = 64;                     // K of a stage: a 128-byte row
-constexpr int STAGES = 4;
-constexpr int A_BYTES = GM * GK * 2;       // 16 KB
-constexpr int B_BYTES = GN * GK * 2;       // 32 KB
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int GEMM_THREADS = 384;          // consumers 0-255, producer 256-383
-constexpr int CONSUMER_WARPS = 8;
-// 1024 bytes of slack to align the stages (128-byte swizzle atoms), the
-// stages, and the full / empty barriers
-constexpr size_t GEMM_SMEM = 1024 + (size_t)STAGES * STAGE_BYTES +
-                             2 * STAGES * sizeof(uint64_t);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// returns once the phase of parity ``parity`` has completed; a wait of
-// 2^24 polls (seconds, where a real one takes microseconds) traps, so a
-// pipeline fault ends the launch with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (!done && ++polls == (1u << 24)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// box at (column c0, row c1) of a 2-D map into dst; completes on bar
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile in 128-byte swizzle: rows of 128
-// bytes, 8-row atoms 1024 bytes apart (the stride byte offset); the leading
-// byte offset is unused in this layout.  Adding 2 advances 32 bytes (16
-// bf16 of K) inside the atom.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// waits until at most N committed groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous product
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 256, f32) += A (64 x 16, K-major) . B (256 x 16, K-major)^T
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
-                                                 uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
-      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
-      "%122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// Persistent: a block per SM walks the output tiles tile = blockIdx.x,
-// + gridDim.x, ...; tile t is C tile t % n_ct of row tile t / n_ct, so the
-// C tiles of a row tile run side by side and its A rows come from L2.  The
-// producer runs ahead across tiles: it loads the next tile's stages while
-// the consumers finish this one's epilogue.  Consumer warpgroup wg owns rows
-// m0 + 64 wg .. + 63.  Its accumulator d[4 j + e] (j < 32, e < 4) of thread
-// (warp w, lane l) is row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4)
-// + e % 2 of the warpgroup's 64 x 256 tile: the four lanes l / 4 alike
-// share two rows.
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 loglike_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b,
                     const float* __restrict__ gconsts,
                     float* __restrict__ loglike, float* __restrict__ part,
                     int rows, int c, int k_tiles, int n_ct, int n_tiles) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
-  uint64_t* empty = full + STAGES;
-  const int wg = threadIdx.x / 128;
   const int ld = n_ct * GN;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);                 // the producer's expect_tx
-      mbar_init(&empty[s], CONSUMER_WARPS);   // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 2) {
-    // producer: one thread issues every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 2 * 128) {
-      int s = 0;
-      uint32_t phase = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int n0 = (tile % n_ct) * GN, m0 = (tile / n_ct) * GM;
-        for (int kt = 0; kt < k_tiles; ++kt) {
-          mbar_wait(&empty[s], phase ^ 1);
-          unsigned char* st = smem + s * STAGE_BYTES;
-          mbar_expect_tx(&full[s], STAGE_BYTES);
-          tma_load_2d(st, &map_a, &full[s], kt * GK, m0);
-          tma_load_2d(st + A_BYTES, &map_b, &full[s], kt * GK, n0);
-          if (++s == STAGES) {
-            s = 0;
-            phase ^= 1;
-          }
+  auto epi = [=](float (&acc)[128], int row0, int n0, int ct, int q) {
+    const int row1 = row0 + 8;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < GN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + 8 * j + 2 * q + e;
+        if (col < c) {
+          const float g = __ldg(gconsts + col);
+          acc[4 * j + e] += g;
+          acc[4 * j + 2 + e] += g;
+          mx0 = fmaxf(mx0, acc[4 * j + e]);
+          mx1 = fmaxf(mx1, acc[4 * j + 2 + e]);
         }
       }
     }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-    const int q = lane & 3;
-    int s = 0;
-    uint32_t phase = 0;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int ct = tile % n_ct;
-      const int n0 = ct * GN, m0 = (tile / n_ct) * GM;
-      float acc[128];
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-      // one group of products stays in flight while the next stage's are
-      // issued; a stage is released once the group that read it is done
-      int prev = -1;
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        mbar_wait(&full[s], phase);
-        const unsigned char* st = smem + s * STAGE_BYTES;
-        const uint64_t da = sw128_desc(st + wg * (64 * GK * 2));
-        const uint64_t db = sw128_desc(st + A_BYTES);
-        fence_acc(acc);
-        wgmma_fence();
+    for (int j = 0; j < GN / 8; ++j) {
 #pragma unroll
-        for (int kk = 0; kk < GK / 16; ++kk)
-          wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk);
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_acc(acc);
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = s;
-        if (++s == STAGES) {
-          s = 0;
-          phase ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (lane == 0) mbar_arrive(&empty[prev]);
-
-      // epilogue: + gconsts, the row partials over columns < c, the stores
-      const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
-      const int row1 = row0 + 8;
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < GN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + 8 * j + 2 * q + e;
-          if (col < c) {
-            const float g = __ldg(gconsts + col);
-            acc[4 * j + e] += g;
-            acc[4 * j + 2 + e] += g;
-            mx0 = fmaxf(mx0, acc[4 * j + e]);
-            mx1 = fmaxf(mx1, acc[4 * j + 2 + e]);
-          }
-        }
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < GN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n0 + 8 * j + 2 * q + e < c) {
-            s0 += expf(acc[4 * j + e] - mx0);
-            s1 += expf(acc[4 * j + 2 + e] - mx1);
-          }
-        }
-      }
-      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-#pragma unroll
-      for (int j = 0; j < GN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * q;  // < ld: ld is a multiple of GN
-        if (row0 < rows)
-          *reinterpret_cast<float2*>(loglike + (size_t)row0 * ld + col) =
-              make_float2(acc[4 * j], acc[4 * j + 1]);
-        if (row1 < rows)
-          *reinterpret_cast<float2*>(loglike + (size_t)row1 * ld + col) =
-              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-      }
-      if (q == 0) {
-        if (row0 < rows) {
-          float* p = part + ((size_t)row0 * n_ct + ct) * 2;
-          p[0] = mx0;
-          p[1] = s0;
-        }
-        if (row1 < rows) {
-          float* p = part + ((size_t)row1 * n_ct + ct) * 2;
-          p[0] = mx1;
-          p[1] = s1;
+      for (int e = 0; e < 2; ++e) {
+        if (n0 + 8 * j + 2 * q + e < c) {
+          s0 += expf(acc[4 * j + e] - mx0);
+          s1 += expf(acc[4 * j + 2 + e] - mx1);
         }
       }
     }
-  }
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (nrows, f_pad) row-major bf16 matrix as GK x box_rows boxes in
-// 128-byte swizzle; rows past nrows read as zeros.  0 or 10000 + CUresult.
-int make_map(CUtensorMap* map, const void* ptr, int nrows, int f_pad,
-             int box_rows) {
-  EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return 10000 + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)f_pad, (cuuint64_t)nrows};
-  const cuuint64_t strides[1] = {(cuuint64_t)f_pad * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)GK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+#pragma unroll
+    for (int j = 0; j < GN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * q;  // < ld: ld is a multiple of GN
+      if (row0 < rows)
+        *reinterpret_cast<float2*>(loglike + (size_t)row0 * ld + col) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (row1 < rows)
+        *reinterpret_cast<float2*>(loglike + (size_t)row1 * ld + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    if (q == 0) {
+      if (row0 < rows) {
+        float* p = part + ((size_t)row0 * n_ct + ct) * 2;
+        p[0] = mx0;
+        p[1] = s0;
+      }
+      if (row1 < rows) {
+        float* p = part + ((size_t)row1 * n_ct + ct) * 2;
+        p[0] = mx1;
+        p[1] = s1;
+      }
+    }
+  };
+  gemm_persistent(&map_a, &map_b, k_tiles, n_ct, n_tiles, epi);
 }
 
 // ---------------------------------------------------------------------------
@@ -696,23 +400,14 @@ extern "C" int sg_stats_fwd_loglike(const void* aug16, const void* projk,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f_pad % GK != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
-  int rc = make_map(&map_a, aug16, rows, f_pad, GM);
+  int rc = make_map(&map_a, aug16, rows, f_pad, f_pad, GM);
   if (rc != 0) return rc;
-  rc = make_map(&map_b, projk, c, f_pad, GN);
+  rc = make_map(&map_b, projk, c, f_pad, f_pad, GN);
   if (rc != 0) return rc;
-  cudaError_t err = prepare(loglike_gemm_kernel, GEMM_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
   const int n_ct = (c + GN - 1) / GN;
   const int n_tiles = n_ct * ((rows + GM - 1) / GM);
-  loglike_gemm_kernel<<<n_tiles < sms ? n_tiles : sms, GEMM_THREADS,
-                        GEMM_SMEM, s>>>(map_a, map_b, gconsts, loglike, part,
-                                        rows, c, f_pad / GK, n_ct, n_tiles);
-  return (int)cudaGetLastError();
+  return launch_gemm(loglike_gemm_kernel, n_tiles, s, map_a, map_b, gconsts,
+                     loglike, part, rows, c, f_pad / GK, n_ct, n_tiles);
 }
 
 // 3.  loglike (b t, ld) f32, part (b t, ceil(c / 256), 2) f32, x (b, t, d)

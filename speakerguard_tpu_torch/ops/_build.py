@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes``.  Libraries go to ``csrc/_build/``
-(listed in .gitignore), named by a hash of their source so an edited kernel
-is rebuilt.  Nothing here runs at import time.
+(listed in .gitignore), named by a hash of their source and of every
+shared header ``csrc/*.cuh``, so an edited kernel or header is rebuilt.
+Nothing here runs at import time.
 """
 
 import ctypes
@@ -29,9 +30,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> str:

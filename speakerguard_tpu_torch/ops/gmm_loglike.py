@@ -54,15 +54,11 @@ def fused_loglike_plain(x: torch.Tensor, quad_proj: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """csrc/gmm.cu, built at first use, with its two C entry points
-    declared."""
+    """csrc/gmm.cu, built at first use, with its C entry point declared."""
     lib = load_library("gmm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sg_fused_loglike.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.sg_stats_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                 p]
-    for fn in (lib.sg_fused_loglike, lib.sg_stats_bwd):
-        fn.restype = ctypes.c_int
+    lib.sg_fused_loglike.restype = ctypes.c_int
     return lib
 
 

@@ -34,8 +34,15 @@ three launches of ``csrc/gmm_stats_fwd.cu`` on the N = B T flattened rows
   3. ``normalise_stats``: posts from the combined partials, posts16,
      zeroth and first.
 
-``stats_bwd`` launches kernel C of ``csrc/gmm.cu``.  On CPU tensors both
-run their plain versions.
+``stats_bwd`` runs the three launches of ``csrc/gmm_stats_bwd.cu``, each
+with its plain version too:
+
+  1. ``dl_direct``: bf16(dl) (N, C) and the direct term posts16 . bf16(df)
+     (N, D), dp on the tensor cores;
+  2. ``daug_gemm``: daug = bf16(dl) . proj16^T in f32 on TMA + wgmma;
+  3. ``chain_sum``: dx = daug[:, :D] + chain(daug[:, D:], x) + direct.
+
+On CPU tensors each wrapper and launch helper runs its plain version.
 """
 
 import ctypes
@@ -46,24 +53,14 @@ import torch.nn.functional as F
 
 from speakerguard_tpu_torch.ops._build import (KernelWrapper, check_rc,
                                                load_library)
-from speakerguard_tpu_torch.ops.gmm_loglike import (_library, check_operands,
+from speakerguard_tpu_torch.ops.gmm_loglike import (check_operands,
                                                     packed_indices,
                                                     pair_table)
 
 K_TILE = 64  # aug16 / projK columns are padded to this (one TMA box row)
 N_TILE = 256  # loglike columns of one softmax partial (the GEMM's tile)
-MAX_D_CARD = 128  # the normalise launch holds D / 16 accumulators of first
-ROW_TILE = 64  # frames per block of kernel C's daug launch, and F columns
-BLOCKS_WANTED = 1056  # 8 blocks' worth per SM of an H100's 132
-
-
-def bwd_splits(rows: int, d: int) -> int:
-    """Blocks that share one 64-row tile's F tiles in kernel C's daug
-    launch: enough to give the card ~1000 blocks when the batch alone
-    gives few, at most one F tile each.  Their partial dx sum in a fixed
-    order."""
-    n_ft = -(-(d + d * (d + 1) // 2) // ROW_TILE)
-    return max(1, min(n_ft, BLOCKS_WANTED // -(-rows // ROW_TILE)))
+MAX_D_CARD = 128  # the normalise and dl launches hold D / 16 accumulators
+TMA_ALIGN = 8  # a TMA operand's bf16 row stride is a multiple of 16 bytes
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -107,14 +104,54 @@ def stats_bwd_plain(x: torch.Tensor, proj16: torch.Tensor,
                     dfirst: torch.Tensor) -> torch.Tensor:
     """The input cotangent dx (B, T, D) f32 from the forward's posts16 and
     the cotangents dzeroth (B, C), dfirst (B, C, D)."""
-    d = x.shape[-1]
-    df16 = _bf(dfirst)
-    dp = dzeroth[:, None, :] + _bf(x) @ df16.mT
-    posts = posts16.to(torch.float32)
-    dl = posts * (dp - (posts * dp).sum(dim=-1, keepdim=True))
+    b, t, d = x.shape
+    dl = dl_plain(x, posts16, dzeroth, dfirst).reshape(b, t, -1)
     daug = _bf(dl) @ proj16.to(torch.float32).T
     dx = chain_plain(daug[..., d:], x) + daug[..., :d]
-    return dx + posts @ df16
+    return dx + posts16.to(torch.float32) @ _bf(dfirst)
+
+
+def dl_plain(x: torch.Tensor, posts16: torch.Tensor,
+             dzeroth: torch.Tensor, dfirst: torch.Tensor) -> torch.Tensor:
+    """The f32 softmax VJP dl (N, C) over the flattened rows: dp = dz +
+    x16 . bf16(df)^T, dl = posts (dp - sum_c posts dp)."""
+    dp = dzeroth[:, None, :] + _bf(x) @ _bf(dfirst).mT
+    posts = posts16.to(torch.float32)
+    dl = posts * (dp - (posts * dp).sum(dim=-1, keepdim=True))
+    return dl.reshape(-1, dl.shape[-1])
+
+
+def dl_direct_plain(x: torch.Tensor, posts16: torch.Tensor,
+                    dzeroth: torch.Tensor, dfirst: torch.Tensor):
+    """x (B, T, D) f32, posts16 (B, T, C) bf16, dzeroth (B, C), dfirst
+    (B, C, D) f32 -> (bf16(dl) (N, C), direct = posts16 . bf16(df) (N, D)
+    f32)."""
+    direct = posts16.to(torch.float32) @ _bf(dfirst)
+    return (dl_plain(x, posts16, dzeroth, dfirst).to(torch.bfloat16),
+            direct.reshape(-1, x.shape[-1]))
+
+
+def daug_plain(dl16: torch.Tensor, proj16: torch.Tensor) -> torch.Tensor:
+    """bf16(dl) (N, C), proj16 (F, C) bf16 -> daug (N, F) f32."""
+    return dl16.to(torch.float32) @ proj16.to(torch.float32).T
+
+
+def chain_sum_plain(daug: torch.Tensor, x: torch.Tensor,
+                    direct: torch.Tensor) -> torch.Tensor:
+    """daug (N, F) f32, x (B, T, D) f32, direct (N, D) f32 -> dx (B, T, D):
+    daug[:, :D] + (Q + diag Q) x + direct, with Q the symmetric D x D
+    matrix Q[r, c] = Q[c, r] = daug[:, D + p] for p = (r, c) (chain_plain's
+    function, which adds dq_p x_r twice when r = c)."""
+    b, t, d = x.shape
+    xf = x.reshape(-1, d)
+    rows, cols = packed_indices(d, x.device)
+    dq = daug[:, d:d + rows.numel()]
+    q = daug.new_zeros((xf.shape[0], d, d))
+    q[:, rows, cols] = dq
+    q[:, cols, rows] = dq
+    quad = (q @ xf[..., None])[..., 0] + torch.diagonal(q, dim1=1,
+                                                        dim2=2) * xf
+    return (daug[:, :d] + quad + direct).reshape(b, t, d)
 
 
 def padded_k(f: int) -> int:
@@ -203,7 +240,7 @@ def _on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch), False on the CPU (plain version);
     raises on any other device."""
     if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"stats_fwd runs on cuda or cpu, not {t.device}")
+        raise ValueError(f"the GMM stats run on cuda or cpu, not {t.device}")
     return t.device.type == "cuda"
 
 
@@ -286,6 +323,121 @@ def normalise_stats(loglike: torch.Tensor, part: torch.Tensor,
     return zeroth, first, posts16
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    """csrc/gmm_stats_bwd.cu, built at first use, with its three C entry
+    points (one per launch) declared."""
+    lib = load_library("gmm_stats_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sg_stats_bwd_dl.argtypes = [p, p, p, p, p, i, p, i, i, i, i, p]
+    lib.sg_stats_bwd_daug.argtypes = [p, i, p, i, p, i, i, i, i, p]
+    lib.sg_stats_bwd_chain.argtypes = [p, i, p, p, p, i, i, p]
+    for fn in (lib.sg_stats_bwd_dl, lib.sg_stats_bwd_daug,
+               lib.sg_stats_bwd_chain):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def dl_direct(x: torch.Tensor, posts16: torch.Tensor, dzeroth: torch.Tensor,
+              dfirst: torch.Tensor):
+    """Launch 1 of ``stats_bwd``: ``dl_direct_plain``'s function.  On the
+    card bf16(dl) is an (N, C) view of an (N, round_up(C, 8)) buffer whose
+    pad columns are 0; bf16(df) goes in as a (B, C, round_up(D, 16)) copy
+    with zero pad columns, made here in plain torch."""
+    b, t, d = x.shape
+    c = posts16.shape[-1]
+    if (posts16.shape != (b, t, c) or dzeroth.shape != (b, c)
+            or dfirst.shape != (b, c, d) or posts16.dtype != torch.bfloat16
+            or not all(a.dtype == torch.float32 for a in (x, dzeroth,
+                                                          dfirst))):
+        raise ValueError(f"dl_direct: x {tuple(x.shape)}, posts16 "
+                         f"{tuple(posts16.shape)} {posts16.dtype}, dzeroth "
+                         f"{tuple(dzeroth.shape)}, dfirst "
+                         f"{tuple(dfirst.shape)} (float32 but posts16)")
+    if not _on_card(x):
+        return dl_direct_plain(x, posts16, dzeroth, dfirst)
+    if d > MAX_D_CARD:
+        raise ValueError(f"dl_direct: D = {d} > {MAX_D_CARD} on the card")
+    xc, pc, zc = (a.contiguous() for a in (x, posts16, dzeroth))
+    # bf16(df) with D padded to whole 16-column tensor-core tiles
+    dp = -(-d // 16) * 16
+    df16 = (torch.empty if dp == d else torch.zeros)(
+        (b, c, dp), dtype=torch.bfloat16, device=x.device)
+    df16[..., :d] = dfirst
+    ldc = -(-c // TMA_ALIGN) * TMA_ALIGN
+    dl16 = torch.empty((b * t, ldc), dtype=torch.bfloat16, device=x.device)
+    direct = torch.empty((b * t, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _bwd_library().sg_stats_bwd_dl(
+            xc.data_ptr(), pc.data_ptr(), zc.data_ptr(), df16.data_ptr(),
+            dl16.data_ptr(), ldc, direct.data_ptr(), b, t, d, c,
+            torch.cuda.current_stream().cuda_stream)
+    check_rc(rc, "stats_bwd (dl)")
+    return dl16[:, :c], direct
+
+
+def _tma_rows(a: torch.Tensor) -> torch.Tensor:
+    """A 2-D bf16 matrix as TMA reads it: unit column stride, a row stride
+    of a multiple of 8 elements and a 16-byte aligned start; ``a`` itself
+    or a zero-padded copy."""
+    if (a.stride(1) == 1 and a.stride(0) % TMA_ALIGN == 0
+            and a.data_ptr() % 16 == 0):
+        return a
+    return F.pad(a, (0, -a.shape[1] % TMA_ALIGN)).contiguous()
+
+
+def daug_gemm(dl16: torch.Tensor, proj16: torch.Tensor) -> torch.Tensor:
+    """Launch 2 of ``stats_bwd``: ``daug_plain``'s function.  On the card
+    daug is an (N, F) view of an (N, round_up(F, 256)) buffer."""
+    if (dl16.ndim != 2 or proj16.ndim != 2
+            or proj16.shape[1] != dl16.shape[1]
+            or dl16.dtype != torch.bfloat16
+            or proj16.dtype != torch.bfloat16):
+        raise ValueError(f"daug_gemm: dl16 {tuple(dl16.shape)} "
+                         f"{dl16.dtype}, proj16 {tuple(proj16.shape)} "
+                         f"{proj16.dtype} (bf16, (N, C) and (F, C))")
+    if not _on_card(dl16):
+        return daug_plain(dl16, proj16)
+    rows, c = dl16.shape
+    f = proj16.shape[0]
+    a, pj = _tma_rows(dl16), _tma_rows(proj16)
+    ldf = -(-f // N_TILE) * N_TILE
+    daug = torch.empty((rows, ldf), dtype=torch.float32, device=dl16.device)
+    with torch.cuda.device(dl16.device):
+        rc = _bwd_library().sg_stats_bwd_daug(
+            a.data_ptr(), a.stride(0), pj.data_ptr(), pj.stride(0),
+            daug.data_ptr(), ldf, rows, c, f,
+            torch.cuda.current_stream().cuda_stream)
+    check_rc(rc, "stats_bwd (daug GEMM)")
+    return daug[:, :f]
+
+
+def chain_sum(daug: torch.Tensor, x: torch.Tensor,
+              direct: torch.Tensor) -> torch.Tensor:
+    """Launch 3 of ``stats_bwd``: ``chain_sum_plain``'s function.  daug may
+    have a row stride larger than F (a multiple of 4)."""
+    b, t, d = x.shape
+    n, f = b * t, d + d * (d + 1) // 2
+    if (daug.shape != (n, f) or direct.shape != (n, d)
+            or not all(a.dtype == torch.float32 for a in (daug, x, direct))):
+        raise ValueError(f"chain_sum: daug {tuple(daug.shape)}, x "
+                         f"{tuple(x.shape)}, direct {tuple(direct.shape)} "
+                         f"(float32, (N, F), (B, T, D), (N, D))")
+    if not _on_card(x):
+        return chain_sum_plain(daug, x, direct)
+    if daug.stride(1) != 1 or daug.stride(0) % 4 or daug.data_ptr() % 16:
+        raise ValueError(f"chain_sum: daug's rows (stride "
+                         f"{daug.stride()}) must start 16-byte aligned")
+    xc, dc = x.contiguous(), direct.contiguous()
+    dx = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _bwd_library().sg_stats_bwd_chain(
+            daug.data_ptr(), daug.stride(0), xc.data_ptr(), dc.data_ptr(),
+            dx.data_ptr(), n, d, torch.cuda.current_stream().cuda_stream)
+    check_rc(rc, "stats_bwd (chain)")
+    return dx
+
+
 def _check(x, proj16, gconsts):
     check_operands(x, proj16, gconsts, torch.bfloat16)
     if x.ndim != 3 or 0 in x.shape:
@@ -318,33 +470,22 @@ class _StatsBwd(KernelWrapper):
         b, t, d = x.shape
         c = proj16.shape[1]
         if (posts16.shape != (b, t, c) or posts16.dtype != torch.bfloat16
-                or dzeroth.shape != (b, c) or dfirst.shape != (b, c, d)):
+                or dzeroth.shape != (b, c) or dfirst.shape != (b, c, d)
+                or proj16.shape[0] != d + d * (d + 1) // 2
+                or proj16.dtype != torch.bfloat16
+                or x.dtype != torch.float32):
             raise ValueError(f"stats_bwd: posts16 {tuple(posts16.shape)} "
                              f"{posts16.dtype}, dzeroth "
                              f"{tuple(dzeroth.shape)}, dfirst "
-                             f"{tuple(dfirst.shape)} do not fit x "
-                             f"{tuple(x.shape)} and C={c}")
+                             f"{tuple(dfirst.shape)}, proj16 "
+                             f"{tuple(proj16.shape)} {proj16.dtype} do not "
+                             f"fit x {tuple(x.shape)} {x.dtype}")
         dzeroth = dzeroth.to(torch.float32)
         dfirst = dfirst.to(torch.float32)
         if not self.route(x):
             return stats_bwd_plain(x, proj16, posts16, dzeroth, dfirst)
-        dev = x.device
-        args = [a.contiguous() for a in (x, proj16, posts16, dzeroth,
-                                         dfirst)]
-        pairs = pair_table(d, dev)
-        splits = bwd_splits(b * t, d)
-        dl16 = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
-        direct = torch.empty((b, t, d), dtype=torch.float32, device=dev)
-        part = torch.empty((splits, b, t, d), dtype=torch.float32,
-                           device=dev)
-        dx = torch.empty((b, t, d), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = _library().sg_stats_bwd(
-                *(a.data_ptr() for a in args), pairs.data_ptr(),
-                dl16.data_ptr(), direct.data_ptr(), part.data_ptr(),
-                dx.data_ptr(), b, t, d, c, splits, stream)
-        check_rc(rc, self.name)
+        dl16, direct = dl_direct(x, posts16, dzeroth, dfirst)
+        dx = chain_sum(daug_gemm(dl16, proj16), x, direct)
         self.launches += 1
         return dx
 

@@ -136,14 +136,16 @@ def test_aug_ops_value_and_grad_match_jax(fast):
 
 
 # ---------------------------------------------------------------------------
-# B and C: fused stats (fast path, bf16 operands / f32 accumulation)
+# stats_fwd and stats_bwd: fused stats (fast path, bf16 operands / f32
+# accumulation)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("b,t,d,c", [(2, 37, 10, 128), (3, 20, 6, 200)])
 def test_stats_fwd_plain_matches_jax_kernel(b, t, d, c):
-    """Plain B's (zeroth, first, posts16) against _stats_fwd(interpret=
-    True).  Same bf16 rounding points on both sides, f32 sums in another
-    order (and exp from another library): zeroth and first to 1e-5
+    """stats_fwd_plain's (zeroth, first, posts16) against
+    _stats_fwd(interpret=True).  Same bf16 rounding points on both sides,
+    f32 sums in another order (and exp from another library): zeroth and
+    first to 1e-5
     relative of their scale; posts16 bit-equal except a one-ulp flip on at
     most 1% of the entries."""
     jp, proj16, tp = _gmm(b * t, c, d)
@@ -255,9 +257,10 @@ def test_partials_combine_to_row_max_and_logsumexp(c):
 
 @pytest.mark.parametrize("b,t,d,c", [(2, 37, 10, 128), (3, 20, 6, 200)])
 def test_stats_bwd_plain_matches_jax_kernel(b, t, d, c):
-    """Plain C's dx against _stats_bwd(interpret=True), both fed the same
-    posts16 (the JAX forward's) and cotangents: identical bf16 rounding
-    points, f32 sums in another order, 1e-5 of the gradient's scale."""
+    """stats_bwd_plain's dx against _stats_bwd(interpret=True), both fed
+    the same posts16 (the JAX forward's) and cotangents: identical bf16
+    rounding points, f32 sums in another order, 1e-5 of the gradient's
+    scale."""
     jp, proj16, tp = _gmm(b * t + 1, c, d)
     x = _feats(b + t + 1, b, t, d)
     rng = np.random.default_rng(8)
@@ -276,6 +279,92 @@ def test_stats_bwd_plain_matches_jax_kernel(b, t, d, c):
     assert (S.stats_bwd.plain_calls, S.stats_bwd.launches) == (1, 0)
     assert got.shape == want.shape == (b, t, d)
     _assert_grad_close(got, want)
+
+
+# the backward's three launches (csrc/gmm_stats_bwd.cu), each by its plain
+# version: D = 6 and 10, C = 64, 128 and 200, T no multiple of the 64-frame
+# tile
+BWD_LAUNCH_SHAPES = [(2, 37, 10, 128), (3, 20, 6, 200), (2, 45, 6, 64),
+                     (2, 70, 10, 200), (3, 29, 10, 64), (2, 65, 6, 128)]
+
+
+def _bwd_inputs(b, t, d, c, seed):
+    """The JAX GMM, x, cotangents and the JAX forward's posts16 (also as a
+    torch bf16 tensor) at one shape."""
+    jp, proj16, tp = _gmm(seed, c, d)
+    x = _feats(seed + 1, b, t, d)
+    rng = np.random.default_rng(seed + 2)
+    dz = rng.standard_normal((b, c)).astype(np.float32)
+    df = rng.standard_normal((b, c, d)).astype(np.float32)
+    _, _, jpost = _stats_fwd(jnp.asarray(x), proj16, jp.gconsts,
+                             interpret=True)
+    post16 = torch.tensor(np.asarray(jpost[:, :t].astype(jnp.float32))
+                          ).to(torch.bfloat16)
+    return proj16, tp, x, dz, df, jpost, post16
+
+
+@pytest.mark.parametrize("b,t,d,c", BWD_LAUNCH_SHAPES)
+def test_stats_bwd_launches_compose_to_plain_and_jax(b, t, d, c):
+    """dl and the direct term -> the daug GEMM -> the chain rule and sum,
+    run through the launch helpers on CPU tensors (their plain versions),
+    against stats_bwd_plain (f32 sums in another order: 1e-6 of the
+    gradient's scale) and against _stats_bwd(interpret=True) under
+    _assert_grad_close, both fed the JAX forward's posts16."""
+    proj16, tp, x, dz, df, jpost, post16 = _bwd_inputs(b, t, d, c,
+                                                       b * t + c + d)
+    xt, dzt, dft = torch.tensor(x), torch.tensor(dz), torch.tensor(df)
+    dl16, direct = S.dl_direct(xt, post16, dzt, dft)
+    assert dl16.shape == (b * t, c) and dl16.dtype == torch.bfloat16
+    assert direct.shape == (b * t, d) and direct.dtype == torch.float32
+    daug = S.daug_gemm(dl16, tp["proj16"])
+    assert daug.shape == (b * t, L.aug_dim(d))
+    dx = S.chain_sum(daug, xt, direct)
+    assert dx.shape == (b, t, d) and dx.dtype == torch.float32
+    want = S.stats_bwd_plain(xt, tp["proj16"], post16, dzt, dft)
+    np.testing.assert_allclose(dx.numpy(), want.numpy(), rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
+    jwant = np.asarray(_stats_bwd(jnp.asarray(x), proj16, jpost,
+                                  jnp.asarray(dz), jnp.asarray(df),
+                                  interpret=True))
+    _assert_grad_close(dx.numpy(), jwant)
+
+
+@pytest.mark.parametrize("b,t,d,c", BWD_LAUNCH_SHAPES[:3])
+def test_dl_plain_rounds_once_and_direct_is_posts16_df16(b, t, d, c):
+    """dl_direct_plain's bf16(dl) is dl_plain rounded once (the softmax VJP
+    in f32: rows of posts (dp - sum_c posts dp) with dp = dz + x16 df16^T,
+    which sum to ~0 over c since the posteriors sum to 1), and its direct
+    term is posts16 . bf16(df) exactly as the plain f32 product."""
+    _, _, x, dz, df, _, post16 = _bwd_inputs(b, t, d, c, b + t + c)
+    xt, dzt, dft = torch.tensor(x), torch.tensor(dz), torch.tensor(df)
+    dl = S.dl_plain(xt, post16, dzt, dft)
+    dl16, direct = S.dl_direct_plain(xt, post16, dzt, dft)
+    assert torch.equal(dl16, dl.to(torch.bfloat16))
+    scale = float(dl.abs().max())
+    assert float(dl.sum(dim=-1).abs().max()) <= 1e-2 * scale
+    df16 = S._bf(dft)
+    want = torch.einsum("btc,bcd->btd", post16.float(), df16)
+    np.testing.assert_allclose(direct.numpy(), want.reshape(-1, d).numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [6, 10, 72])
+def test_chain_sum_plain_is_chain_plus_linear_and_direct(d):
+    """chain_sum_plain (the symmetric D x D form the card's launch uses)
+    equals chain_plain (the packed VJP, index_add) plus daug[:, :D] plus
+    the direct term: f32 sums of D + 3 terms in another order, 1e-6 of the
+    largest sum of absolute terms."""
+    rng = np.random.default_rng(d)
+    b, t = 2, 9
+    x = torch.tensor(rng.standard_normal((b, t, d)).astype(np.float32))
+    daug = torch.tensor(rng.standard_normal((b * t, L.aug_dim(d))
+                                            ).astype(np.float32))
+    direct = torch.tensor(rng.standard_normal((b * t, d)).astype(np.float32))
+    got = S.chain_sum_plain(daug, x, direct)
+    want = (S.chain_plain(daug[:, d:].reshape(b, t, -1), x)
+            + daug[:, :d].reshape(b, t, d) + direct.reshape(b, t, d))
+    terms = float(S.chain_sum_plain(daug.abs(), x.abs(), direct.abs()).max())
+    assert float((got - want).abs().max()) <= 1e-6 * terms
 
 
 def _assert_grad_close(got, want, share=0.05, flip_bar=2e-3):
@@ -412,6 +501,45 @@ def test_wrappers_check_their_operands():
                     torch.zeros(2, 128), torch.zeros(2, 128, 9))
 
 
+def _bad_bwd_operands():
+    """(name, args) pairs the backward's wrapper or one of its launch
+    helpers must refuse: a wrong shape or dtype each."""
+    _, _, tp = _gmm(1)
+    x = torch.zeros(2, 5, 10)
+    p16 = torch.zeros(2, 5, 128, dtype=torch.bfloat16)
+    dz, df = torch.zeros(2, 128), torch.zeros(2, 128, 10)
+    dl16 = torch.zeros(10, 128, dtype=torch.bfloat16)
+    daug, direct = torch.zeros(10, 65), torch.zeros(10, 10)
+    return {
+        "stats_bwd posts16 f32": (S.stats_bwd, (x, tp["proj16"], p16.float(),
+                                                dz, df)),
+        "stats_bwd proj16 f32": (S.stats_bwd, (x, tp["proj16"].float(), p16,
+                                               dz, df)),
+        "stats_bwd dzeroth (2, 127)": (S.stats_bwd, (x, tp["proj16"], p16,
+                                                     dz[:, 1:], df)),
+        "dl_direct posts16 f32": (S.dl_direct, (x, p16.float(), dz, df)),
+        "dl_direct dfirst (2, 128, 9)": (S.dl_direct, (x, p16, dz,
+                                                       df[..., 1:])),
+        "daug_gemm proj16 f32": (S.daug_gemm, (dl16, tp["proj16"].float())),
+        "daug_gemm C mismatch": (S.daug_gemm, (dl16[:, 1:], tp["proj16"])),
+        "chain_sum daug (10, 64)": (S.chain_sum, (daug[:, 1:], x, direct)),
+        "chain_sum direct bf16": (S.chain_sum, (daug, x,
+                                                direct.bfloat16())),
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "stats_bwd posts16 f32", "stats_bwd proj16 f32",
+    "stats_bwd dzeroth (2, 127)", "dl_direct posts16 f32",
+    "dl_direct dfirst (2, 128, 9)", "daug_gemm proj16 f32",
+    "daug_gemm C mismatch", "chain_sum daug (10, 64)",
+    "chain_sum direct bf16"])
+def test_stats_bwd_and_its_launches_check_their_operands(case):
+    fn, args = _bad_bwd_operands()[case]
+    with pytest.raises(ValueError):
+        fn(*args)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -446,9 +574,10 @@ def test_cuda_loglike_kernel_matches_plain(b, t, d, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,d,c", CARD_SHAPES)
 def test_cuda_stats_kernels_match_plain(b, t, d, c):
-    """Kernel B against plain B, and kernel C against plain C on the
-    posts16 that kernel B produced.  The kernel's loglike sums 2700
-    tensor-core products in another order than the plain f32 GEMM (1e-4
+    """stats_fwd against its plain version, and stats_bwd against its
+    plain version on the posts16 that the stats_fwd kernel produced.  The
+    kernel's loglike sums 2700 tensor-core products in another order than
+    the plain f32 GEMM (1e-4
     absolute at loglikes of a few hundred, measured at the main shape), so
     a posterior moves by ~1e-4 of itself: posts16 is held to the plain f32
     posteriors at half a bf16 ulp (its rounding) + 1e-3 relative; zeroth
@@ -499,3 +628,46 @@ def test_cuda_stats_fwd_launches_match_plain(b, t, d, c):
     assert torch.equal(part[..., 0], part_k[..., 0])
     assert float(((part[..., 1] - part_k[..., 1]).abs()
                   / part_k[..., 1]).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,c", CARD_SHAPES + [(2, 45, 6, 100)])
+def test_cuda_stats_bwd_launches_match_plain(b, t, d, c):
+    """Each of stats_bwd's launches against its plain version on the same
+    inputs (chip_smoke.py phase_stats_bwd_launches gives the reasons; C =
+    100 takes the scalar posts16 loads and the zero-padded TMA operands):
+    bf16(dl) within one bf16 ulp of the plain f32 dl plus posts 1e-5 of the
+    row's largest sum of absolute terms of dp; the direct term and daug
+    within 2e-6, the chain within 1e-6, of their largest sums of absolute
+    terms."""
+    p, x, g = _card_inputs(b, t, d, c)
+    proj16 = p.quad_proj.to(torch.bfloat16)
+    dz = torch.randn((b, c), generator=g, device="cuda")
+    df = torch.randn((b, c, d), generator=g, device="cuda")
+    post16 = S.stats_fwd(x, proj16, p.gconsts)[2]
+    dl16, direct = S.dl_direct(x, post16, dz, df)
+    torch.cuda.synchronize()
+    dl = S.dl_plain(x, post16, dz, df)
+    posts = post16.reshape(b * t, c).float()
+    dp_terms = (dz.abs()[:, None, :] + S._bf(x).abs() @ S._bf(df).abs().mT
+                ).amax(dim=-1).reshape(-1, 1)
+    ulp = torch.clamp_min(BF16_ULP * torch.maximum(dl.abs(),
+                                                   dl16.float().abs()),
+                          2.0 ** -133)
+    assert bool(((dl16.float() - dl).abs()
+                 <= ulp + 1e-5 * posts * dp_terms).all())
+    want = S.dl_direct_plain(x, post16, dz, df)[1]
+    terms = float((post16.float() @ S._bf(df).abs()).max())
+    assert float((direct - want).abs().max()) <= 2e-6 * terms
+
+    daug = S.daug_gemm(dl16, proj16)
+    torch.cuda.synchronize()
+    terms = float((dl16.float().abs() @ proj16.float().abs().T).max())
+    assert float((daug - S.daug_plain(dl16, proj16)).abs().max()) <= (
+        2e-6 * terms)
+
+    dx = S.chain_sum(daug, x, direct)
+    torch.cuda.synchronize()
+    terms = float(S.chain_sum_plain(daug.abs(), x.abs(), direct.abs()).max())
+    assert float((dx - S.chain_sum_plain(daug, x, direct)).abs().max()) <= (
+        1e-6 * terms)
