@@ -14,11 +14,14 @@ Phases, one JSON line each:
   2. build    nvcc builds the port's kernel sources, csrc/chol.cu,
               csrc/gmm.cu, csrc/gmm_stats_fwd.cu and csrc/gmm_stats_bwd.cu,
               one process each, side by side, into csrc/_build/.
-  3. launch   each of stats_fwd's three launches (aug16, the loglike GEMM
-              with its softmax partials, normalise-and-stats) and of
-              stats_bwd's three (dl and the direct term, the daug GEMM, the
-              chain rule and sum) against its plain version at the main and
-              ragged shapes, with its CUDA-event time at the main shape.
+  3. launch   each of fused_loglike's two launches (the three-piece bf16
+              split of aug(x), the six-product split GEMM; the projection's
+              split between them is plain torch), of stats_fwd's three
+              (aug16, the loglike GEMM with its softmax partials,
+              normalise-and-stats) and of stats_bwd's three (dl and the
+              direct term, the daug GEMM, the chain rule and sum) against
+              its plain version at the main and ragged shapes, with its
+              CUDA-event time at the main shape.
   4. kernel   each kernel against its plain PyTorch version on the card at
               the main path's shapes and at ragged ones: error, CUDA-event
               times of the kernel, the plain version and one PyTorch library
@@ -27,11 +30,12 @@ Phases, one JSON line each:
               residual and strictly-lower zeros); cholesky_rt_dinv (R equal
               to cholesky_rt's, dinv_t inverting R's blocks, pad blocks
               identity); chol_solve (against plain and float64);
-              fused_loglike, stats_fwd and stats_bwd (the latter on the
-              posts16 stats_fwd produced); stats_fwd also beside the same
-              bf16 addmm on the 64-column-padded operands its GEMM takes,
-              stats_bwd also beside its own product bf16(dl) . proj16^T as
-              one torch.mm with an f32 output.
+              fused_loglike (against plain, and against a float64 product
+              beside the plain f32 one), stats_fwd and stats_bwd (the
+              latter on the posts16 stats_fwd produced); stats_fwd also
+              beside the same bf16 addmm on the 64-column-padded operands
+              its GEMM takes, stats_bwd also beside its own product
+              bf16(dl) . proj16^T as one torch.mm with an f32 output.
   5. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
               R=200, weights from a numpy seed), 10 enrolled speakers, task
               CSI-E, 64 utterances of 3 s; make_decision, then PGD (10
@@ -56,8 +60,9 @@ Phases, one JSON line each:
  10. rounds   (--rounds N) ms per PGD iteration of slice_fast_default,
               slice_chol_dinv and slice_chol_solve, N rounds, the order
               rotated each round: the three differ only in the SPD solver.
- 11. kernels  one line listing every ported kernel (stats_fwd and
-              stats_bwd with the time of each of their launches).
+ 11. kernels  one line listing every ported kernel (fused_loglike,
+              stats_fwd and stats_bwd with the time of each of their
+              launches).
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -406,9 +411,11 @@ def phase_small_reference(torch):
 def gmm_bounds(b, t, d, c):
     """Least times (ms) of the three GMM kernels on this card: each input
     read once and each output written once at the memory rate, against
-    their products at the type's peak rate (f32 for fused_loglike, bf16
-    for the stats kernels) plus their elementwise work at the f32 rate.
-    Returns {name: (bound_ms, bound_by)}."""
+    their products at the type's peak rate plus their elementwise work at
+    the f32 rate.  fused_loglike's f32-grade product on the tensor cores is
+    six bf16 products (the three-piece split, as Precision.HIGHEST on the
+    TPU); ``fused_loglike_f32_simt`` is the same function as one f32
+    product on the CUDA cores.  Returns {name: (bound_ms, bound_by)}."""
     n, p = b * t, d * (d + 1) // 2
     f = d + p
 
@@ -418,8 +425,10 @@ def gmm_bounds(b, t, d, c):
 
     return {
         # x, quad_proj, gconsts in; loglike out.  aug products + the GEMM
-        "fused_loglike": bound(4 * (n * d + f * c + c + n * c), 0,
-                               n * p + 2.0 * n * f * c),
+        "fused_loglike": bound(4 * (n * d + f * c + c + n * c),
+                               6 * 2.0 * n * f * c, n * p),
+        "fused_loglike_f32_simt": bound(4 * (n * d + f * c + c + n * c), 0,
+                                        n * p + 2.0 * n * f * c),
         # x, proj16, gconsts in; zeroth, first, posts16 out.  loglike and
         # first products; aug products, softmax (max, exp, sum, divide)
         "stats_fwd": bound(4 * n * d + 2 * f * c + 4 * c + 4 * b * c
@@ -469,6 +478,79 @@ def stats_fwd_check(x, got, want, pf):
             "posts16_within_half_ulp_plus_1e-3": p_ok,
             "first_within_flip_bound": f_ok,
             "ok": z_err <= 1e-4 * float(zw.abs().max()) and p_ok and f_ok}
+
+
+def phase_fused_loglike_launches(torch):
+    """fused_loglike's two launches, each against its plain version on the
+    same inputs, at the main and ragged shapes.  Tolerances, with their
+    reasons:
+      aug_split    torch.equal: the same roundings (the f32 aug value formed
+                   once, then its three bf16 pieces), pad columns zero;
+      split_gemm   2e-6 of the largest sum of absolute terms of
+                   loglike_split_plain (its six products of |pieces|): the
+                   same exact products summed in another order, on the
+                   tensor cores against f32 GEMMs.
+    The projection's split (proj_split_kmajor, plain torch) is timed with
+    them; an odd C takes the GEMM epilogue's scalar stores.  Returns
+    {launch: main-shape record}."""
+    from speakerguard_tpu_torch.ops import gmm_loglike as L
+    main = {}
+    for b, t, d, c in GMM_SHAPES + [(2, 45, 7, 101)]:
+        is_main = (b, t, d, c) == GMM_SHAPES[0]
+        p, x, _, _ = gmm_inputs(torch, b, t, d, c)
+        f = L.aug_dim(d)
+        shape = {"B": b, "T": t, "D": d, "C": c, "N": b * t, "F": f,
+                 "F_pad": L.padded_k(f)}
+
+        aug_s = L.aug_split(x)
+        torch.cuda.synchronize()
+        pieces = aug_s.reshape(b * t, 3, -1)
+        recs = {"aug_split": {
+            "equal_to_plain": bool(torch.equal(aug_s,
+                                               L.augment_split_plain(x))),
+            "pad_columns_zero": bool((pieces[..., f:] == 0).all()),
+            "tolerance": "torch.equal"}}
+        recs["aug_split"]["ok"] = (recs["aug_split"]["equal_to_plain"]
+                                   and recs["aug_split"]["pad_columns_zero"])
+
+        proj_s = L.proj_split_kmajor(p.quad_proj)
+        ll = L.loglike_split_gemm(aug_s, proj_s, p.gconsts)
+        torch.cuda.synchronize()
+        ll_w = L.loglike_split_plain(aug_s, proj_s, p.gconsts)
+        terms = float(L.loglike_split_plain(aug_s.abs(), proj_s.abs(),
+                                            p.gconsts.abs()).max())
+        err = float((ll - ll_w).abs().max())
+        recs["split_gemm"] = {
+            "max_abs_err": err, "max_abs_loglike": float(ll_w.abs().max()),
+            "max_abs_terms": terms, "tolerance": 2e-6 * terms,
+            "ok": err <= 2e-6 * terms}
+        del ll_w
+
+        if is_main:
+            n = b * t
+            timing = {
+                "aug_split": lambda: L.aug_split(x),
+                "proj_split": lambda: L.proj_split_kmajor(p.quad_proj),
+                "split_gemm": lambda: L.loglike_split_gemm(aug_s, proj_s,
+                                                           p.gconsts)}
+            for name, fn in timing.items():
+                recs.setdefault(name, {"ok": True})["ms"] = cuda_ms(fn, 3, 20)
+            gemm = recs["split_gemm"]
+            # counted over the six bf16 products
+            gemm["tflops"] = 6 * 2.0 * n * f * c / gemm["ms"] / 1e9
+            gemm["tflops_padded_k"] = (6 * 2.0 * n * L.padded_k(f) * c
+                                       / gemm["ms"] / 1e9)
+            gemm["bf16_peak_share"] = gemm["tflops"] * 1e12 / BF16_FLOPS
+        for name, rec in recs.items():
+            rec = {"phase": "launch", "kernel": "fused_loglike",
+                   "launch": name, "case": "main" if is_main else "ragged",
+                   **shape, **rec}
+            emit(rec)
+            if not rec["ok"]:
+                raise RuntimeError(f"fused_loglike {name} {shape}: {rec}")
+            if is_main:
+                main[name] = rec
+    return main
 
 
 def phase_stats_fwd_launches(torch):
@@ -695,8 +777,12 @@ def phase_gmm_kernels(torch):
     at the main path's shape (64 x 300 frames, D=72, C=2048) and at ragged
     ones (T not a multiple of the 64-frame tile, C not a multiple of the
     64-component tile, small D).  Tolerances, with their reasons:
-      fused_loglike  2e-6 of max |loglike|: f32 sums of 2700 products in
-                     another order (the kernel is float32 throughout);
+      fused_loglike  2e-6 of max |loglike|: sums of 2700 exact products in
+                     another order (six bf16 products of the three-piece
+                     split, each stage's tensor-core partial sum added in
+                     f32); and its error against a float64 product of the
+                     same f32 aug values at most twice the plain f32
+                     product's;
       stats_fwd      posts16 within half a bf16 ulp (its rounding) + 1e-3
                      relative of the plain f32 posteriors: the kernel's
                      tensor-core sums of 2700 bf16 products differ from the
@@ -723,8 +809,17 @@ def phase_gmm_kernels(torch):
         want = L.fused_loglike_plain(x, p.quad_proj, p.gconsts)
         err = float((out - want).abs().max())
         tol = 2e-6 * float(want.abs().max())
-        recs = {"fused_loglike": {"max_abs_err": err, "tolerance": tol,
-                                  "ok": err <= tol}}
+        ref = (L.augment_plain(x).double() @ p.quad_proj.double()
+               + p.gconsts.double())
+        err64 = float((out.double() - ref).abs().max())
+        plain64 = float((want.double() - ref).abs().max())
+        del ref
+        recs = {"fused_loglike": {
+            "max_abs_err": err, "max_abs_loglike": float(want.abs().max()),
+            "tolerance": tol, "max_abs_err_f64": err64,
+            "plain_max_abs_err_f64": plain64,
+            "tolerance_f64": "2 x the plain f32 product's",
+            "ok": err <= tol and err64 <= 2.0 * plain64}}
 
         z, f, post16 = S.stats_fwd(x, proj16, p.gconsts)
         torch.cuda.synchronize()
@@ -780,6 +875,8 @@ def phase_gmm_kernels(torch):
                     + " aug (no single PyTorch call computes the fused "
                       "function)")
                 recs[name]["bound_ms"], recs[name]["bound_by"] = bounds[name]
+            recs["fused_loglike"]["bound_f32_simt_ms"] = bounds[
+                "fused_loglike_f32_simt"][0]
             # the same product on the 64-column-padded operands the port's
             # GEMM takes (2752 columns: rows 16-byte aligned)
             aug16_pad = S.augment16_padded_plain(x)
@@ -1027,6 +1124,7 @@ def main(argv):
                           or "spill" in ln]
                     for src, log in logs.items()}})
 
+    loglike_launch_recs = phase_fused_loglike_launches(torch)
     launch_recs = phase_stats_fwd_launches(torch)
     bwd_launch_recs = phase_stats_bwd_launches(torch)
     recs = {"cholesky_rt": phase_kernels(torch, chol),
@@ -1076,6 +1174,10 @@ def main(argv):
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    ll = next(k for k in kernels if k["name"] == "fused_loglike")
+    ll["bound_f32_simt_ms"] = recs["fused_loglike"]["bound_f32_simt_ms"]
+    ll["launch_ms"] = {k: v["ms"] for k, v in loglike_launch_recs.items()
+                       if "ms" in v}
     fwd = next(k for k in kernels if k["name"] == "stats_fwd")
     fwd["library_aligned_ms"] = recs["stats_fwd"]["library_aligned_ms"]
     fwd["launch_ms"] = {k: v["ms"] for k, v in launch_recs.items()

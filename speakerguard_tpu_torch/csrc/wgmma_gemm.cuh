@@ -1,16 +1,20 @@
-// The persistent TMA + wgmma GEMM of the GMM statistics kernels on Hopper
-// (sm_90a), shared by csrc/gmm_stats_fwd.cu (the loglike GEMM) and
-// csrc/gmm_stats_bwd.cu (the daug GEMM).
+// The persistent TMA + wgmma GEMM of the GMM kernels on Hopper (sm_90a),
+// shared by csrc/gmm_stats_fwd.cu (the loglike GEMM), csrc/gmm_stats_bwd.cu
+// (the daug GEMM) and csrc/gmm.cu (fused_loglike's six-product split GEMM).
 //
 //    out (rows, n) = A (rows, K) . B (n, K)^T, bf16 operands, f32 accumulation
 //
 // with A and B both K-major (K contiguous) and read through 2-D tensor maps
-// (``make_map``).  A 128 x 256 output tile at a time, a persistent block per
-// SM: one producer warp keeps TMA loads of A 128 x 64 and B 256 x 64
-// (128-byte swizzle) in flight in a ring of 4 stages (48 KB each), running
-// ahead into the next tile during the epilogue; two consumer warpgroups
-// issue wgmma m64n256k16 from shared memory, 128 f32 accumulators a thread;
-// setmaxnreg moves registers from producer to consumers.  The n tiles of
+// (``make_map``).  A 128 x 256 output tile at a time (GemmWide, the default),
+// a persistent block per SM: one producer warp keeps TMA loads of A 128 x 64
+// and B 256 x 64 (128-byte swizzle) in flight in a ring of 4 stages (48 KB
+// each), running ahead into the next tile during the epilogue; two consumer
+// warpgroups issue wgmma m64n256k16 from shared memory, 128 f32 accumulators
+// a thread; setmaxnreg moves registers from producer to consumers.
+// A kernel may bring its own plan (GemmShape): several boxes of A and B a
+// stage and several products on them, 128 x 128 tiles, and a partial sum
+// per stage that f32 adds promote into a second accumulator, for sums that
+// must hold f32 accuracy over many k-tiles.  The n tiles of
 // one row tile are neighbours in tile order, so the A row tile is read from
 // L2.  TMA fills rows and K columns past a map's extent with zeros, so
 // ragged edges need no masks in the main loop; the epilogue, which each
@@ -19,10 +23,12 @@
 // Each kernel is ``gemm_persistent`` with its own epilogue functor, called
 // once per tile and consumer thread as
 //    epi(acc, row0, n0, ct, q)
-// where acc[4 j + e] (j < 32, e < 4) is row row0 + 8 (e / 2), column n0 +
+// where acc[4 j + e] (j < BN / 8, e < 4) is row row0 + 8 (e / 2), column n0 +
 // 8 j + 2 q + e % 2 of the output (the wgmma D-fragment layout: row 16 w +
 // l / 4 + 8 (e / 2) of the warpgroup's 64 rows for warp w, lane l, and q =
 // l % 4, so the four lanes of a quad share two rows), and ct is the n tile.
+// The plan (GemmWide by default) says which columns of A and B a stage
+// loads and which products it runs on them.
 
 #pragma once
 
@@ -49,18 +55,48 @@ cudaError_t prepare(K kernel, size_t smem) {
 }
 
 constexpr int GM = 128;                    // rows of an output tile
-constexpr int GN = 256;                    // columns: one wgmma n256
+constexpr int GN = 256;                    // columns (GemmWide): one n256
 constexpr int GK = 64;                     // K of a stage: a 128-byte row
-constexpr int STAGES = 4;
+constexpr int STAGES = 4;                  // (GemmWide)
 constexpr int A_BYTES = GM * GK * 2;       // 16 KB
-constexpr int B_BYTES = GN * GK * 2;       // 32 KB
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int GEMM_THREADS = 384;          // consumers 0-255, producer 256-383
 constexpr int CONSUMER_WARPS = 8;
-// 1024 bytes of slack to align the stages (128-byte swizzle atoms), the
-// stages, and the full / empty barriers
-constexpr size_t GEMM_SMEM = 1024 + (size_t)STAGES * STAGE_BYTES +
-                             2 * STAGES * sizeof(uint64_t);
+
+// A GEMM's plan: its tile, its ring, and what a stage holds.  A stage holds
+// PIECES boxes of A (GM x GK) and as many of B (BN x GK), box p of k-tile
+// kt read from column plan.col(kt, p) of each operand, and runs PRODUCTS
+// products: product i multiplies A box product(i).x by B box product(i).y.
+// PROMOTE: each consumer thread keeps two f32 accumulators of BN / 2; a
+// stage's products go into a partial sum that the tensor cores start from
+// zero, which is then added into the tile's total with f32 adds
+// (round-to-nearest), so the tensor cores' own accumulation sums only one
+// stage's terms and its rounding error stays at that scale, not the whole
+// sum's.  Without it every product adds into one accumulator.
+template <int BN_, int NST_, int PIECES_, int PRODUCTS_, bool PROMOTE_>
+struct GemmShape {
+  static constexpr int BN = BN_;          // columns of a tile: one wgmma n
+  static constexpr int NST = NST_;        // stages of the TMA ring
+  static constexpr int PIECES = PIECES_;
+  static constexpr int PRODUCTS = PRODUCTS_;
+  static constexpr bool PROMOTE = PROMOTE_;
+  static constexpr int B_BYTES = BN * GK * 2;
+  static constexpr int B_OFF = PIECES * A_BYTES;  // the A boxes, then B's
+  static constexpr int STAGE = PIECES * (A_BYTES + B_BYTES);
+  // 1024 bytes of slack to align the stages (128-byte swizzle atoms), the
+  // stages, and the full / empty barriers
+  static constexpr size_t SMEM =
+      1024 + (size_t)NST * STAGE + 2 * NST * sizeof(uint64_t);
+};
+
+// The default plan: 128 x 256 tiles (wgmma m64n256k16), 4 stages of 48 KB,
+// k-tile kt is columns kt * GK .. kt * GK + GK - 1 of A and B, one product
+// a stage into one accumulator of 128 registers a consumer thread.
+struct GemmWide : GemmShape<GN, STAGES, 1, 1, false> {
+  __device__ __forceinline__ int col(int kt, int) const { return kt * GK; }
+  __device__ __forceinline__ static int2 product(int) {
+    return make_int2(0, 0);
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -140,9 +176,39 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous product
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, f32) = A (64 x 16, K-major) . B (128 x 16, K-major)^T, plus
+// d itself unless ``add`` is 0
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(add));
 }
 
 // d (64 x 256, f32) += A (64 x 16, K-major) . B (256 x 16, K-major)^T
@@ -192,25 +258,28 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       : "l"(da), "l"(db), "r"(1));
 }
 
-// The body of a GEMM kernel launched with GEMM_THREADS threads and GEMM_SMEM
-// bytes of dynamic shared memory.  Persistent: a block walks the output
-// tiles tile = blockIdx.x, + gridDim.x, ...; tile t is n tile t % n_ct of
-// row tile t / n_ct.  The producer runs ahead across tiles: it loads the
-// next tile's stages while the consumers run this one's epilogue.
-template <class Epilogue>
+// The body of a GEMM kernel launched with GEMM_THREADS threads and
+// Plan::SMEM bytes of dynamic shared memory (``launch_gemm<Plan>``).
+// Persistent: a block walks the output tiles tile = blockIdx.x, +
+// gridDim.x, ...; tile t is n tile t % n_ct of row tile t / n_ct.  The
+// producer runs ahead across tiles: it loads the next tile's stages while
+// the consumers run this one's epilogue.  k_tiles counts stages a tile.
+template <class Plan = GemmWide, class Epilogue>
 __device__ __forceinline__ void gemm_persistent(const CUtensorMap* map_a,
                                                 const CUtensorMap* map_b,
                                                 int k_tiles, int n_ct,
-                                                int n_tiles, Epilogue& epi) {
+                                                int n_tiles, Epilogue& epi,
+                                                Plan plan = Plan()) {
+  constexpr int NST = Plan::NST, BN = Plan::BN;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
-  uint64_t* empty = full + STAGES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NST * Plan::STAGE);
+  uint64_t* empty = full + NST;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 1);                 // the producer's expect_tx
       mbar_init(&empty[s], CONSUMER_WARPS);   // lane 0 of each consumer warp
     }
@@ -226,14 +295,19 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* map_a,
       int s = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int n0 = (tile % n_ct) * GN, m0 = (tile / n_ct) * GM;
+        const int n0 = (tile % n_ct) * BN, m0 = (tile / n_ct) * GM;
         for (int kt = 0; kt < k_tiles; ++kt) {
           mbar_wait(&empty[s], phase ^ 1);
-          unsigned char* st = smem + s * STAGE_BYTES;
-          mbar_expect_tx(&full[s], STAGE_BYTES);
-          tma_load_2d(st, map_a, &full[s], kt * GK, m0);
-          tma_load_2d(st + A_BYTES, map_b, &full[s], kt * GK, n0);
-          if (++s == STAGES) {
+          unsigned char* st = smem + s * Plan::STAGE;
+          mbar_expect_tx(&full[s], Plan::STAGE);
+#pragma unroll
+          for (int p = 0; p < Plan::PIECES; ++p) {
+            const int k = plan.col(kt, p);
+            tma_load_2d(st + p * A_BYTES, map_a, &full[s], k, m0);
+            tma_load_2d(st + Plan::B_OFF + p * Plan::B_BYTES, map_b,
+                        &full[s], k, n0);
+          }
+          if (++s == NST) {
             s = 0;
             phase ^= 1;
           }
@@ -247,36 +321,76 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* map_a,
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int ct = tile % n_ct;
-      const int n0 = ct * GN, m0 = (tile / n_ct) * GM;
-      float acc[128];
+      const int n0 = ct * BN, m0 = (tile / n_ct) * GM;
+      float acc[BN / 2];
 #pragma unroll
-      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-      // one group of products stays in flight while the next stage's are
-      // issued; a stage is released once the group that read it is done
-      int prev = -1;
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        mbar_wait(&full[s], phase);
-        const unsigned char* st = smem + s * STAGE_BYTES;
-        const uint64_t da = sw128_desc(st + wg * (64 * GK * 2));
-        const uint64_t db = sw128_desc(st + A_BYTES);
-        fence_acc(acc);
-        wgmma_fence();
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      if constexpr (!Plan::PROMOTE) {
+        // one group of products stays in flight while the next stage's are
+        // issued; a stage is released once the group that read it is done
+        int prev = -1;
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(&full[s], phase);
+          const unsigned char* st = smem + s * Plan::STAGE;
+          fence_acc(acc);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < GK / 16; ++kk)
-          wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk);
-        wgmma_commit();
-        wgmma_wait<1>();
+          for (int i = 0; i < Plan::PRODUCTS; ++i) {
+            const int2 pr = Plan::product(i);
+            const uint64_t da =
+                sw128_desc(st + pr.x * A_BYTES + wg * (64 * GK * 2));
+            const uint64_t db =
+                sw128_desc(st + Plan::B_OFF + pr.y * Plan::B_BYTES);
+#pragma unroll
+            for (int kk = 0; kk < GK / 16; ++kk)
+              wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_acc(acc);
+          if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+          prev = s;
+          if (++s == NST) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
         fence_acc(acc);
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = s;
-        if (++s == STAGES) {
-          s = 0;
-          phase ^= 1;
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      } else {
+        // the stage's partial sum: its first product overwrites it; once
+        // the stage's products are done it is released and part is added
+        // into acc
+        float part[BN / 2];
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(&full[s], phase);
+          const unsigned char* st = smem + s * Plan::STAGE;
+          fence_acc(part);
+          wgmma_fence();
+#pragma unroll
+          for (int i = 0; i < Plan::PRODUCTS; ++i) {
+            const int2 pr = Plan::product(i);
+            const uint64_t da =
+                sw128_desc(st + pr.x * A_BYTES + wg * (64 * GK * 2));
+            const uint64_t db =
+                sw128_desc(st + Plan::B_OFF + pr.y * Plan::B_BYTES);
+#pragma unroll
+            for (int kk = 0; kk < GK / 16; ++kk)
+              wgmma_m64n128k16(part, da + 2 * kk, db + 2 * kk, i + kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(part);
+          if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+          if (++s == NST) {
+            s = 0;
+            phase ^= 1;
+          }
         }
       }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (lane == 0) mbar_arrive(&empty[prev]);
       epi(acc, m0 + wg * 64 + warp * 16 + (lane >> 2), n0, ct, lane & 3);
     }
   }
@@ -328,17 +442,17 @@ int make_map(CUtensorMap* map, const void* ptr, int nrows, int ncols, int ld,
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
-// Launches ``kernel`` (a gemm_persistent body) on min(n_tiles, SMs) blocks
-// with the arguments ``args``; returns cudaGetLastError().
-template <class K, class... Args>
+// Launches ``kernel`` (a gemm_persistent<Plan> body) on min(n_tiles, SMs)
+// blocks with the arguments ``args``; returns cudaGetLastError().
+template <class Plan = GemmWide, class K, class... Args>
 int launch_gemm(K kernel, int n_tiles, cudaStream_t s, Args... args) {
-  cudaError_t err = prepare(kernel, GEMM_SMEM);
+  cudaError_t err = prepare(kernel, Plan::SMEM);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<n_tiles < sms ? n_tiles : sms, GEMM_THREADS, GEMM_SMEM, s>>>(
+  kernel<<<n_tiles < sms ? n_tiles : sms, GEMM_THREADS, Plan::SMEM, s>>>(
       args...);
   return (int)cudaGetLastError();
 }

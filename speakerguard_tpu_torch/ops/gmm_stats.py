@@ -53,11 +53,10 @@ import torch.nn.functional as F
 
 from speakerguard_tpu_torch.ops._build import (KernelWrapper, check_rc,
                                                load_library)
-from speakerguard_tpu_torch.ops.gmm_loglike import (check_operands,
+from speakerguard_tpu_torch.ops.gmm_loglike import (K_TILE, check_operands,
                                                     packed_indices,
-                                                    pair_table)
+                                                    padded_k, pair_table)
 
-K_TILE = 64  # aug16 / projK columns are padded to this (one TMA box row)
 N_TILE = 256  # loglike columns of one softmax partial (the GEMM's tile)
 MAX_D_CARD = 128  # the normalise and dl launches hold D / 16 accumulators
 TMA_ALIGN = 8  # a TMA operand's bf16 row stride is a multiple of 16 bytes
@@ -152,11 +151,6 @@ def chain_sum_plain(daug: torch.Tensor, x: torch.Tensor,
     quad = (q @ xf[..., None])[..., 0] + torch.diagonal(q, dim1=1,
                                                         dim2=2) * xf
     return (daug[:, :d] + quad + direct).reshape(b, t, d)
-
-
-def padded_k(f: int) -> int:
-    """F rounded up to whole 64-column K tiles."""
-    return -(-f // K_TILE) * K_TILE
 
 
 def augment16_padded_plain(x: torch.Tensor) -> torch.Tensor:
