@@ -29,7 +29,11 @@ Phases, one JSON line each:
               dominant and an i-vector-shaped input (also the blocked
               residual and strictly-lower zeros); cholesky_rt_dinv (R equal
               to cholesky_rt's, dinv_t inverting R's blocks, pad blocks
-              identity); chol_solve (against plain and float64);
+              identity); chol_solve (against plain and float64).  At the
+              main shape each Cholesky call's device kernels are counted
+              with torch.profiler (1 for cholesky_rt, 2 for
+              cholesky_rt_dinv and chol_solve: the sweep and its tail), and
+              the latter two also time the sweep alone (sweep_ms);
               fused_loglike (against plain, and against a float64 product
               beside the plain f32 one), stats_fwd and stats_bwd (the
               latter on the posts16 stats_fwd produced); stats_fwd also
@@ -108,6 +112,27 @@ def parse_ms(text):
         if text.endswith(unit):
             return float(text[:-len(unit)]) * scale
     raise ValueError(f"unknown time unit in {text!r}")
+
+
+def check_kernels_per_call(torch, rec, fn, expected):
+    """Count the device kernels that one call of ``fn`` runs, as
+    torch.profiler's CUDA activity records them, into ``rec``, and raise
+    unless there are ``expected``.  Copies and fills are device events but
+    not kernels."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(not n.startswith(("Memcpy", "Memset")) for n in names)
+    rec["device_kernels_per_call"] = count
+    rec["device_kernels_expected"] = expected
+    rec["device_events"] = sorted(set(names))
+    if count != expected:
+        raise RuntimeError(f"{rec['kernel']}: {count} device kernels in one "
+                           f"call, expected {expected}: {names}")
 
 
 def _bound(byte_ms, op_ms):
@@ -231,6 +256,9 @@ def phase_kernels(torch, chol):
                 lambda: torch.linalg.cholesky(a32, upper=True), 3, 20)
             rec["bound_ms"], rec["bound_by"] = chol_bound_ms(
                 b, n, a.element_size(), upd, chol.NB)
+        if name == "main_f32":
+            check_kernels_per_call(torch, rec,
+                                   lambda: chol.cholesky_rt(a, upd), 1)
         emit(rec)
         if not (lower_zero and resid <= tol and rel_err <= tol_plain):
             raise RuntimeError(f"cholesky_rt {name}: rel err {rel_err} "
@@ -328,6 +356,11 @@ def phase_chol_dinv(torch, chol):
                 "function)")
             rec["bound_ms"], rec["bound_by"] = chol_dinv_bound_ms(
                 b, n, a.element_size(), upd, chol.NB)
+            # the sweep alone: cholesky_rt on the same input
+            rec["sweep_ms"] = cuda_ms(lambda: chol.cholesky_rt(a, upd), 3,
+                                      20)
+            check_kernels_per_call(torch, rec,
+                                   lambda: chol.cholesky_rt_dinv(a, upd), 2)
         emit(rec)
         if not (same_r and inv_err <= 5e-5 and rel_err <= 1e-5 and pad_ok):
             raise RuntimeError(f"cholesky_rt_dinv {name}: {rec}")
@@ -377,6 +410,10 @@ def phase_chol_solve(torch, chol):
                                         "torch.cholesky_solve")
             rec["bound_ms"], rec["bound_by"] = chol_solve_bound_ms(
                 b, n, chol.NB)
+            # the sweep alone: cholesky_rt on the same input
+            rec["sweep_ms"] = cuda_ms(lambda: chol.cholesky_rt(a), 3, 20)
+            check_kernels_per_call(torch, rec,
+                                   lambda: chol.chol_solve(a, v), 2)
         emit(rec)
         if not (rel_err <= 1e-5 and f64_ok):
             raise RuntimeError(f"chol_solve {name}: {rec}")
@@ -963,6 +1000,7 @@ def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
            "scores_shape": list(scores.shape), "finite": finite,
            "within_eps": within,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "success": [int(s) for s in success],
            "launches": launches, "launches_expected": expected,
            "plain_calls": plain}
     emit(rec)
@@ -1174,6 +1212,10 @@ def main(argv):
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    for k in kernels:  # the Cholesky family: kernels per call, the sweep
+        for key in ("device_kernels_per_call", "sweep_ms"):
+            if key in recs[k["name"]]:
+                k[key] = recs[k["name"]][key]
     ll = next(k for k in kernels if k["name"] == "fused_loglike")
     ll["bound_f32_simt_ms"] = recs["fused_loglike"]["bound_f32_simt_ms"]
     ll["launch_ms"] = {k: v["ms"] for k, v in loglike_launch_recs.items()

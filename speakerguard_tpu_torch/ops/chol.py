@@ -14,7 +14,10 @@ Ports of the Pallas TPU kernels in speakerguard_tpu/ops/pallas_chol.py:
 
 Each wrapper launches the hand-written kernel in ``csrc/chol.cu`` on a CUDA
 tensor and runs its ``*_plain`` version on a CPU tensor; there is no fallback
-from one to the other.
+from one to the other.  On the card the whole sweep is one launch, one block
+per matrix, with the 32-row panel stripe in the block's shared memory, so
+the kernels take N <= ``MAX_N`` (1780): above it a CUDA call raises a
+ValueError before any launch (the plain versions have no limit).
 
 All three compute the same right-looking blocked sweep with panels of ``NB``
 rows: NB sequential pivot steps on the panel rows in float32, then one
@@ -38,6 +41,9 @@ from speakerguard_tpu_torch.ops._build import KernelWrapper, check_rc
 
 NB = 32      # panel rows; the kernel reports its own and _lib() checks it
 DINV_M = 128  # edge of the diagonal blocks that cholesky_rt_dinv inverts
+# the largest N of the kernels: 128 LD + 4480 bytes of shared memory, LD = N
+# rounded up to 4, within 232,448 (csrc/chol.cu; _lib() checks it)
+MAX_N = 1780
 
 
 def _check(a: torch.Tensor):
@@ -172,30 +178,48 @@ def blocked_residual(a: torch.Tensor, r: torch.Tensor,
     return float(torch.triu(rebuilt - a64).abs().max() / a64.abs().max())
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# The argument types of csrc/chol.cu's C entry points, in order (a CPU test
+# holds them to the source's extern "C" declarations); each returns an int.
+ARGTYPES = {
+    # a, a_is_bf16, out, batch, n, bf16_updates, stream
+    "sg_cholesky_rt": [_PTR, _INT, _PTR, _INT, _INT, _INT, _PTR],
+    # a, a_is_bf16, out, dinv_t, batch, n, bf16_updates, stream
+    "sg_cholesky_rt_dinv": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    # a, v, out, y, x, batch, n, stream
+    "sg_chol_solve": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR],
+    "sg_cholesky_rt_nb": [],
+    "sg_cholesky_rt_max_n": [],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The C entry points of csrc/chol.cu, built at first use."""
     from speakerguard_tpu_torch.ops._build import load_library
     lib = load_library("chol")
-    lib.sg_cholesky_rt_nb.restype = ctypes.c_int
+    for name, args in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     if lib.sg_cholesky_rt_nb() != NB:
         # the plain versions and blocked_residual group the updates by NB
         raise RuntimeError(f"csrc/chol.cu panels {lib.sg_cholesky_rt_nb()} "
                            f"rows, ops/chol.py NB = {NB}")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, args in (
-            # a, a_is_bf16, work, out, batch, n, bf16_updates, stream
-            ("sg_cholesky_rt", [ptr, i32, ptr, ptr, i32, i32, i32, ptr]),
-            # ... the same, then dinv_t
-            ("sg_cholesky_rt_dinv",
-             [ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr]),
-            # a, v, work, out, y_work, y, x, batch, n, stream
-            ("sg_chol_solve", [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                               ptr])):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
+    if lib.sg_cholesky_rt_max_n() != MAX_N:
+        raise RuntimeError(f"csrc/chol.cu takes N <= "
+                           f"{lib.sg_cholesky_rt_max_n()}, ops/chol.py "
+                           f"MAX_N = {MAX_N}")
     return lib
+
+
+def check_kernel_n(n: int):
+    """Raise unless the kernels take N: the sweep keeps the NB x N panel
+    stripe in one block's shared memory, so N <= MAX_N."""
+    if n > MAX_N:
+        raise ValueError(f"N = {n}: the CUDA Cholesky kernels take N <= "
+                         f"{MAX_N} (the {NB}-row panel stripe and the "
+                         f"diagonal block in 227 KB of shared memory)")
 
 
 def _launch(fn, t: torch.Tensor, *args) -> int:
@@ -215,13 +239,13 @@ class _CholeskyRT(KernelWrapper):
         _check(a)
         if not self.route(a):
             return cholesky_rt_plain(a, bf16_updates)
+        check_kernel_n(a.shape[-1])
         a = a.contiguous()
         b, n, _ = a.shape
         out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
-        work = torch.empty_like(out)
         rc = _launch(_lib().sg_cholesky_rt, a, a.data_ptr(),
-                     int(a.dtype == torch.bfloat16), work.data_ptr(),
-                     out.data_ptr(), b, n, int(bf16_updates))
+                     int(a.dtype == torch.bfloat16), out.data_ptr(), b, n,
+                     int(bf16_updates))
         check_rc(rc, self.name)
         self.launches += 1
         return out
@@ -238,17 +262,16 @@ class _CholeskyRTDinv(KernelWrapper):
         _check(a)
         if not self.route(a):
             return cholesky_rt_dinv_plain(a, bf16_updates)
+        check_kernel_n(a.shape[-1])
         a = a.contiguous()
         b, n, _ = a.shape
         k = -(-n // DINV_M)
         out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
-        work = torch.empty_like(out)
         dinv_t = torch.empty((b, k, DINV_M, DINV_M), dtype=torch.float32,
                              device=a.device)
         rc = _launch(_lib().sg_cholesky_rt_dinv, a, a.data_ptr(),
-                     int(a.dtype == torch.bfloat16), work.data_ptr(),
-                     out.data_ptr(), dinv_t.data_ptr(), b, n,
-                     int(bf16_updates))
+                     int(a.dtype == torch.bfloat16), out.data_ptr(),
+                     dinv_t.data_ptr(), b, n, int(bf16_updates))
         check_rc(rc, self.name)
         self.launches += 1
         return out, dinv_t
@@ -264,14 +287,13 @@ class _CholSolve(KernelWrapper):
         _check_solve(a, v)
         if not self.route(a):
             return chol_solve_plain(a, v)
+        check_kernel_n(a.shape[-1])
         a, v = a.contiguous(), v.contiguous()
         b, n, _ = a.shape
         out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
-        work = torch.empty_like(out)
-        y_work, y, x = (torch.empty_like(v) for _ in range(3))
+        y, x = torch.empty_like(v), torch.empty_like(v)
         rc = _launch(_lib().sg_chol_solve, a, a.data_ptr(), v.data_ptr(),
-                     work.data_ptr(), out.data_ptr(), y_work.data_ptr(),
-                     y.data_ptr(), x.data_ptr(), b, n)
+                     out.data_ptr(), y.data_ptr(), x.data_ptr(), b, n)
         check_rc(rc, self.name)
         self.launches += 1
         return x

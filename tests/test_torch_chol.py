@@ -17,7 +17,8 @@ from speakerguard_tpu.models.ivector import spd_solve as jax_spd_solve
 from speakerguard_tpu.ops.pallas_chol import cholesky_rt as jax_cholesky_rt
 
 from speakerguard_tpu_torch.models.ivector import spd_solve
-from speakerguard_tpu_torch.ops.chol import (blocked_residual, cholesky_rt,
+from speakerguard_tpu_torch.ops.chol import (MAX_N, blocked_residual,
+                                             check_kernel_n, cholesky_rt,
                                              cholesky_rt_plain)
 from speakerguard_tpu_torch.ops.trsv import triangular_solve_vec
 
@@ -185,7 +186,10 @@ def test_blocked_residual_holds_plain_and_sees_rounding(n, kind, upd):
     (64, 600, torch.float32, False, "occupancy"),
     (64, 600, torch.float32, True, "occupancy"),
     (3, 129, torch.float32, False, "dominant"),
-    (2, 1, torch.float32, False, "dominant")])
+    (2, 1, torch.float32, False, "dominant"),
+    (1, 600, torch.float32, False, "dominant"),
+    (2, 617, torch.float32, False, "dominant"),
+    (1, MAX_N, torch.float32, False, "dominant")])
 def test_cuda_kernel_matches_plain(b, n, dtype, upd, kind):
     """The hand-written kernel against its plain version on the card: both
     to the plain factor and to A rebuilt by its own algorithm, at 1e-5.
@@ -209,3 +213,28 @@ def test_cuda_kernel_matches_plain(b, n, dtype, upd, kind):
     assert blocked_residual(spd, got, upd) <= 1e-5
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= (2e-3 if upd and kind == "occupancy" else 1e-5)
+
+
+@pytest.mark.parametrize("n,fits", [(1, True), (600, True), (MAX_N, True),
+                                    (MAX_N + 1, False), (4096, False)])
+def test_kernel_size_limit(n, fits):
+    """The kernels keep the 32-row panel stripe of N columns in one block's
+    shared memory: N above MAX_N raises a ValueError naming the limit (the
+    CUDA wrappers check it before any launch; the plain versions have no
+    limit)."""
+    if fits:
+        check_kernel_n(n)
+    else:
+        with pytest.raises(ValueError, match=str(MAX_N)):
+            check_kernel_n(n)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_n_above_limit():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    cholesky_rt.reset_counts()
+    a = torch.eye(MAX_N + 1, device="cuda")[None]
+    with pytest.raises(ValueError, match=str(MAX_N)):
+        cholesky_rt(a)
+    assert (cholesky_rt.launches, cholesky_rt.plain_calls) == (0, 0)

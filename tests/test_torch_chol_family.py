@@ -10,6 +10,9 @@ by chip_smoke.py).  Sizes stay at N <= 150: the Pallas interpret mode is
 slow.  N = 150 has two 128-row diagonal blocks, the second ragged.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import jax
@@ -24,8 +27,10 @@ from speakerguard_tpu.ops.trsv import triangular_solve_vec as jax_tsv
 
 from speakerguard_tpu_torch.models.ivector import spd_solve
 from speakerguard_tpu_torch.ops.chol import (
-    chol_solve, chol_solve_plain, cholesky_rt, cholesky_rt_dinv,
-    cholesky_rt_dinv_plain, cholesky_rt_plain, diag_block_inverses_t)
+    ARGTYPES, MAX_N, chol_solve, chol_solve_plain, cholesky_rt,
+    cholesky_rt_dinv, cholesky_rt_dinv_plain, cholesky_rt_plain,
+    diag_block_inverses_t)
+from speakerguard_tpu_torch.ops._build import CSRC
 from speakerguard_tpu_torch.ops.trsv import triangular_solve_vec
 
 from test_torch_chol import _spd, _spd_occupancy
@@ -283,7 +288,10 @@ def _cuda():
     (64, 600, torch.float32, False, "occupancy"),
     (3, 129, torch.float32, False, "dominant"),
     (2, 256, torch.float32, False, "occupancy"),
-    (2, 1, torch.float32, False, "dominant")])
+    (2, 1, torch.float32, False, "dominant"),
+    (1, 600, torch.float32, False, "dominant"),
+    (2, 617, torch.float32, False, "dominant"),
+    (1, MAX_N, torch.float32, False, "dominant")])
 def test_cuda_dinv_kernel_matches_plain(b, n, dtype, upd, kind):
     """R bit-identical to the cholesky_rt kernel's; dinv_t inverts R's
     blocks to 5e-5 and equals the plain inversion of the kernel's own R to
@@ -306,7 +314,10 @@ def test_cuda_dinv_kernel_matches_plain(b, n, dtype, upd, kind):
 @pytest.mark.parametrize("b,n,kind", [(64, 600, "dominant"),
                                       (64, 600, "occupancy"),
                                       (3, 129, "dominant"),
-                                      (2, 1, "dominant")])
+                                      (2, 1, "dominant"),
+                                      (1, 600, "dominant"),
+                                      (2, 617, "dominant"),
+                                      (1, MAX_N, "dominant")])
 def test_cuda_chol_solve_kernel_matches_plain(b, n, kind):
     """x against the plain version (1e-5 of max |x|: f32 sums in another
     order in the updates and the back-substitution's matvecs) and against
@@ -326,3 +337,45 @@ def test_cuda_chol_solve_kernel_matches_plain(b, n, kind):
     f64 = np.linalg.solve(spd.astype(np.float64),
                           v.astype(np.float64)[..., None])[..., 0]
     np.testing.assert_allclose(x.cpu().numpy(), f64, rtol=1e-3, atol=1e-4)
+
+
+def _c_declarations():
+    """{name: [argument declarations]} of csrc/chol.cu's extern "C" int
+    functions."""
+    src = (CSRC / "chol.cu").read_text()
+    out = {}
+    for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        out[name] = [a.strip() for a in args.split(",") if a.strip()]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(ARGTYPES))
+def test_ctypes_signatures_match_the_source(name):
+    """ops/chol.py's argument types against each extern "C" declaration of
+    csrc/chol.cu: the same count, a pointer where the C side takes a
+    pointer (or the stream), an int where it takes an int.  A mismatch
+    would otherwise show only on the card, as a crash."""
+    decls = _c_declarations()
+    assert set(decls) == set(ARGTYPES)
+    c_args, py_args = decls[name], ARGTYPES[name]
+    assert len(c_args) == len(py_args), (c_args, py_args)
+    for c, t in zip(c_args, py_args):
+        if "*" in c:
+            assert t is ctypes.c_void_p, (name, c)
+        else:
+            assert re.fullmatch(r"int \w+", c), (name, c)
+            assert t is ctypes.c_int, (name, c)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_reject_n_above_limit():
+    _cuda()
+    a = torch.eye(MAX_N + 1, device="cuda")[None]
+    for w in (cholesky_rt_dinv, chol_solve):
+        w.reset_counts()
+    with pytest.raises(ValueError, match=str(MAX_N)):
+        cholesky_rt_dinv(a)
+    with pytest.raises(ValueError, match=str(MAX_N)):
+        chol_solve(a, torch.ones(1, MAX_N + 1, device="cuda"))
+    for w in (cholesky_rt_dinv, chol_solve):
+        assert (w.launches, w.plain_calls) == (0, 0)

@@ -1,5 +1,6 @@
 """Import hygiene of the port: no module of speakerguard_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package speakerguard_tpu."""
+chip_smoke.py or the port's tools for the card, imports jax or the JAX
+package speakerguard_tpu."""
 
 import ast
 import importlib
@@ -27,7 +28,9 @@ def _forbidden(name):
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    "path", PORT_FILES + [ROOT / "chip_smoke.py",
+                          ROOT / "tools" / "torch_pgd_rounds.py",
+                          ROOT / "tools" / "chol_sweep_phases.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
