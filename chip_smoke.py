@@ -40,7 +40,13 @@ Phases, one JSON line each:
               beside the same bf16 addmm on the 64-column-padded operands
               its GEMM takes, stats_bwd also beside its own product
               bf16(dl) . proj16^T as one torch.mm with an f32 output.
-  5. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
+  5. xv_blocks  each TDNN fast block (_BlockFast, _BlockFastBf16 for each
+              of the five layers; the two stats pools) forward and backward
+              at the xv headline shape (batch 512, T=300 frames) against its
+              plain version, with CUDA-event ms; then xv_small_reference:
+              the card's xv-PLDA scores against the CPU plain path on a
+              model from the same numpy seed.
+  6. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
               R=200, weights from a numpy seed), 10 enrolled speakers, task
               CSI-E, 64 utterances of 3 s; make_decision, then PGD (10
               iterations, eps 0.002, step 0.0004, Entropy) on the exact
@@ -49,24 +55,34 @@ Phases, one JSON line each:
               once per PGD iteration plus once per exact evaluation (12).
               The card's scores are checked against the CPU plain path on a
               small model.
-  6. slice_fast_kernels  the same run with FastPath(gmm_topk=0,
+  7. slice_fast_kernels  the same run with FastPath(gmm_topk=0,
               stats_kernel=True) and loglike_kernel=True: stats_fwd and
               stats_bwd once per iteration (10 each), fused_loglike once per
               exact evaluation (2), cholesky_rt 12; no plain call anywhere.
-  7. slice_fast_default  the same run with FastPath() (top-K 256, the
+  8. slice_fast_default  the same run with FastPath() (top-K 256, the
               unfused bf16 stats): cholesky_rt 12.
-  8. slice_chol_dinv  FastPath() with spd_solver="cholesky_rt_dinv":
+  9. slice_chol_dinv  FastPath() with spd_solver="cholesky_rt_dinv":
               cholesky_rt_dinv 12 (the backward reuses factor and dinv_t),
               cholesky_rt 0.
-  9. slice_chol_solve  FastPath() with spd_solver="chol_solve": chol_solve
+ 10. slice_chol_solve  FastPath() with spd_solver="chol_solve": chol_solve
               22 (forward and backward of each iteration, and the two exact
               evaluations), cholesky_rt 0.
- 10. rounds   (--rounds N) ms per PGD iteration of slice_fast_default,
+ 11. rounds   (--rounds N) ms per PGD iteration of slice_fast_default,
               slice_chol_dinv and slice_chol_solve, N rounds, the order
               rotated each round: the three differ only in the SPD solver.
- 11. kernels  one line listing every ported kernel (fused_loglike,
+ 12. slice_xv  xv-PLDA, the JAX package's headline path, at full width
+              (TDNN_SPEC widths, 30 ceps, LDA to 150, weights from a numpy
+              seed), 10 speakers enrolled from waves, task CSI-E, 512
+              utterances of 3 s: make_decision, then PGD-100 (eps 0.002,
+              step 0.0004, Entropy) with FastPath() (bf16 TDNN activations,
+              bf16 DFT).  No hand kernel lies on this path: every launch
+              count is 0.
+ 13. slice_xv_fast_f32  the same with FastPath(tdnn_bf16_act=False),
+              PGD-10.
+ 14. slice_xv_exact  the same with FastPath(enabled=False), PGD-10.
+ 15. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
-              launches).
+              launches), with its launches on every slice.
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -951,12 +967,13 @@ def build_model(torch, params, fast, loglike_kernel, enroll,
 
 
 def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
-              batch=64, iters=10):
+              fields, batch=64, iters=10):
     """make_decision, then PGD-`iters` on ``model``, after a 1-iteration
     warm-up (first-use costs: lazy module loading, allocator growth,
     library handles).  Every wrapper's counts are set to 0 just before the
     run and read just after; ``expected`` maps names to launch counts, and
-    every plain count must stay 0.  Returns the launch counts."""
+    every plain count must stay 0.  ``fields`` are the model's own fields
+    of the record (its name and shapes).  Returns the launch counts."""
     from speakerguard_tpu_torch.attacks import PGD
     t0 = time.perf_counter()
     PGD(model, task="CSI", epsilon=0.002, step_size=0.0004, max_iter=1,
@@ -986,13 +1003,10 @@ def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
     finite = bool(torch.isfinite(scores).all() and torch.isfinite(adver).all())
     within = float((adver - x).abs().max()) <= 0.002 + 1e-6
     fast = model.fast_path
-    rec = {"phase": name, "model": "iv_plda", "task": "CSI-E",
-           "C": 2048, "D": 72, "IV": 600, "R": 200,
+    rec = {"phase": name, **fields, "task": "CSI-E",
            "speakers": model.num_spks, "batch": batch,
            "samples": int(x.shape[1]), "attack": "PGD", "iterations": iters,
            "fast_path": None if fast is None else vars(fast),
-           "loglike_kernel": model.loglike_kernel,
-           "spd_solver": model.spd_solver,
            "warmup_pgd1_s": warmup_s, "make_decision_s": decide_s,
            "pgd_s": pgd_s, "pgd_ms_per_iter": pgd_s * 1e3 / iters,
            "pgd_utts_per_s": batch / pgd_s,
@@ -1055,10 +1069,210 @@ def phase_slices(torch, wrappers, profile_dir):
     for name, fast, kernel, solver, launches in slices:
         model = build_model(torch, params, fast, kernel, enroll, solver)
         expected = {k: launches.get(k, 0) for k in wrappers}
+        fields = {"model": "iv_plda", "C": 2048, "D": 72, "IV": 600,
+                  "R": 200, "loglike_kernel": kernel, "spd_solver": solver}
         out[name] = run_slice(torch, name, model, x, wrappers, expected,
-                              profile_dir, batch, iters)
+                              profile_dir, fields, batch, iters)
         models[name] = model
     return out, models, x
+
+
+def phase_xv_slices(torch, wrappers, profile_dir):
+    """Full-width xv-PLDA (TDNN_SPEC widths, 30 ceps, a 512-dim x-vector,
+    LDA to 150, weights from numpy seed 0), 10 speakers enrolled from waves,
+    task CSI-E, 512 utterances of 3 s; make_decision, then PGD (eps 0.002,
+    step 0.0004, Entropy) on three fast-path configurations.  No hand
+    kernel lies on this path: every wrapper's launch count is 0.  Returns
+    {slice: launch counts}."""
+    from speakerguard_tpu_torch.models.base import FastPath
+    from speakerguard_tpu_torch.models.tdnn import TDNN_SPEC
+    from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
+                                                       random_xv_plda_params)
+    batch, length, n_spk = 512, 48000, 10
+    t0 = time.perf_counter()
+    params = random_xv_plda_params(np.random.default_rng(0), device="cuda")
+    rng = np.random.default_rng(1)
+    enroll_wavs = rng.uniform(-0.3, 0.3, (n_spk, length)).astype(np.float32)
+    with torch.no_grad():
+        enroll = XvPlda(params, fast=FastPath(enabled=False)).embedding(
+            torch.tensor(enroll_wavs, device="cuda"))
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (batch, length)).astype(
+        np.float32), device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "setup_xv", "seconds": time.perf_counter() - t0})
+    fields = {"model": "xv_plda", "tdnn_spec": TDNN_SPEC, "num_ceps": 30,
+              "emb_dim": 512, "R": 150}
+    slices = [  # (name, FastPath, PGD iterations)
+        ("slice_xv", FastPath(), 100),
+        ("slice_xv_fast_f32", FastPath(tdnn_bf16_act=False), 10),
+        ("slice_xv_exact", FastPath(enabled=False), 10),
+    ]
+    out = {}
+    for name, fast, iters in slices:
+        model = XvPlda(params, fast=fast)
+        model.set_enrollment([f"spk{i}" for i in range(n_spk)], enroll)
+        out[name] = run_slice(torch, name, model, x, wrappers,
+                              {k: 0 for k in wrappers}, profile_dir, fields,
+                              batch, iters)
+    return out
+
+
+def bf16_ulp(torch, a):
+    """The spacing of bf16 numbers at |a| (8 significant bits)."""
+    a = a.abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def within_top_ulp(torch, got, ref):
+    """Every entry within one bf16 ulp of the largest entry of ``ref``."""
+    top = ref.float().abs().max()
+    return bool((got.float() - ref.float()).abs().max()
+                <= bf16_ulp(torch, top))
+
+
+def phase_xv_blocks(torch):
+    """Each TDNN fast block on the card at the headline shape (batch 512,
+    T=300 frames, (B, T, C)) against its plain version ``fast_block_plain``
+    (the block's float32 steps and roundings around float64 convolutions,
+    its backward on the block's own ReLU mask) on the same input and
+    cotangent, at the bars of tests/test_torch_tdnn.py: f32 round-off for
+    _BlockFast (its backward is one bf16 GEMM with a float32 output); for
+    _BlockFastBf16 (bf16 GEMMs) each output within one bf16 ulp plus one
+    ulp of the conv output times the BN scale (the block rounds the conv
+    output before the bias) plus the float32 floor of 1e-5 of the largest
+    entry, and the cotangent within one ulp of its largest entry.  Each
+    stats pool against autograd of the exact pooling (its residual is
+    bf16, so its cotangent within one bf16 ulp of the largest entry).
+    CUDA-event ms of each block's forward and backward, and of the exact
+    layer's forward + backward under autograd."""
+    from speakerguard_tpu_torch.models import tdnn as T
+    tp = T.random_tdnn(np.random.default_rng(0), device="cuda")
+    b, t = 512, 300
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = []
+
+    def rel(a, ref):
+        a, ref = a.detach().float(), ref.detach().float()
+        return float((a - ref).abs().max() / ref.abs().max())
+
+    def grad_of(fn, x, g):
+        xk = x.detach().clone().requires_grad_(True)
+        out = fn(xk)
+        return out, xk, lambda: torch.autograd.grad(out, xk, g,
+                                                    retain_graph=True)[0]
+
+    cin = 30
+    for i, (k, dil, cout) in enumerate(T.TDNN_SPEC):
+        t_out = t - (k - 1) * dil
+        bn = tp.bn_tdnn[i]
+        args = (tp.conv_w[i], tp.conv_b[i], bn.mean, bn.var, dil)
+        for bf16 in (False, True):
+            dt = torch.bfloat16 if bf16 else torch.float32
+            block = T._BlockFastBf16 if bf16 else T._BlockFast
+            x = torch.randn(b, t, cin, device="cuda", generator=gen).to(dt)
+            g = torch.randn(b, t_out, cout, device="cuda",
+                            generator=gen).to(dt)
+            out, xk, bwd = grad_of(lambda xx: block.apply(xx, *args), x, g)
+            dx = bwd()
+            mask = out.grad_fn.saved_tensors[0]
+            p_out, p_dx = T.fast_block_plain(x, *args, g, bf16, mask)
+            if bf16:
+                # one ulp of the output plus one of the conv output (at
+                # most (|out| + one ulp) / s + |b - mean|) times the BN
+                # scale s, plus the float32 sums' absolute round-off floor
+                s_bn = torch.rsqrt(bn.var + T.BN_EPS)
+                mag = torch.maximum(out.detach().float().abs(),
+                                    p_out.float().abs())
+                conv_mag = ((mag + bf16_ulp(torch, mag)) / s_bn
+                            + (args[1] - bn.mean).abs())
+                tol = (bf16_ulp(torch, mag) + s_bn * bf16_ulp(torch, conv_mag)
+                       + 1e-5 * p_out.float().abs().max())
+                excess = (out.detach().float() - p_out.float()).abs() - tol
+                out_ok = bool((excess <= 0).all())
+                dx_ok = within_top_ulp(torch, dx, p_dx)
+            else:
+                out_ok = bool(torch.allclose(
+                    out, p_out, rtol=1e-5,
+                    atol=1e-5 * float(p_out.abs().max())))
+                dx_ok = bool(torch.allclose(
+                    dx, p_dx, rtol=1e-5,
+                    atol=1e-5 * float(p_dx.abs().max())))
+
+            def exact_layer():
+                xf = x.float().requires_grad_(True)
+                ref = T._bn(torch.relu(T._conv1d(xf, args[0], args[1], dil)),
+                            bn)
+                return torch.autograd.grad(ref, xf, g.float())[0]
+
+            rec = {"phase": "xv_blocks",
+                   "block": "_BlockFastBf16" if bf16 else "_BlockFast",
+                   "layer": i + 1, "shape": [b, t, cin],
+                   "out_rel_err": rel(out, p_out),
+                   "out_max_excess": float(excess.max()) if bf16 else None,
+                   "dx_rel_err": rel(dx, p_dx),
+                   "bars": ("output within one bf16 ulp plus one ulp of the "
+                            "conv output times the BN scale plus 1e-5 of "
+                            "the largest; dx within one ulp of the largest"
+                            if bf16
+                            else "rtol 1e-5, atol 1e-5 of max"),
+                   "ok": out_ok and dx_ok,
+                   "fwd_ms": cuda_ms(lambda: block.apply(xk, *args), 2, 10),
+                   "bwd_ms": cuda_ms(bwd, 2, 10),
+                   "exact_fwd_bwd_ms": cuda_ms(exact_layer, 2, 10)}
+            emit(rec)
+            if not rec["ok"]:
+                bad.append(rec)
+            del out, xk, bwd, dx, mask, p_out, p_dx
+        cin = cout
+    for bf16 in (False, True):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        pool = T._StatsPoolFastBf16 if bf16 else T._StatsPoolFast
+        x = torch.randn(b, 270, cin, device="cuda", generator=gen).to(dt)
+        g = torch.randn(b, 2 * cin, device="cuda", generator=gen)
+        out, xk, bwd = grad_of(pool.apply, x, g)
+        dx = bwd()
+        ref, _, ref_bwd = grad_of(
+            lambda xx: torch.cat(T._mean_std(xx.float()), dim=-1), x, g)
+        ref_dx = ref_bwd()
+        rec = {"phase": "xv_blocks", "block": pool.__name__,
+               "shape": [b, 270, cin], "out_rel_err": rel(out, ref),
+               "dx_rel_err": rel(dx, ref_dx),
+               "bars": "rtol 1e-5 (out); dx within one bf16 ulp of the "
+                       "largest entry",
+               "fwd_ms": cuda_ms(lambda: pool.apply(xk), 2, 10),
+               "bwd_ms": cuda_ms(bwd, 2, 10)}
+        rec["ok"] = (rec["out_rel_err"] <= 1e-5
+                     and within_top_ulp(torch, dx, ref_dx))
+        emit(rec)
+        if not rec["ok"]:
+            bad.append(rec)
+    if bad:
+        raise RuntimeError(f"xv_blocks: {len(bad)} blocks off their bars: "
+                           f"{bad}")
+
+
+def phase_xv_small_reference(torch):
+    """The card's xv-PLDA scores against the CPU plain path on a model
+    built from the same numpy seed, at the CPU tests' score bar."""
+    from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
+                                                       random_xv_plda_params)
+    wavs = np.random.default_rng(5).uniform(-0.2, 0.2, (4, 16000)).astype(
+        np.float32)
+    enroll = np.random.default_rng(6).standard_normal((5, 150))
+    scores = {}
+    for dev in ("cpu", "cuda"):
+        model = XvPlda(random_xv_plda_params(np.random.default_rng(99),
+                                             device=dev))
+        model.set_enrollment([str(i) for i in range(5)], enroll)
+        with torch.no_grad():
+            scores[dev] = model.score(torch.tensor(wavs, device=dev)).cpu()
+    err = float((scores["cuda"] - scores["cpu"]).abs().max())
+    ok = bool(torch.allclose(scores["cuda"], scores["cpu"], rtol=1e-4,
+                             atol=2e-3))
+    emit({"phase": "xv_small_reference", "max_abs_err": err,
+          "tolerance": "rtol 1e-4, atol 2e-3", "ok": ok})
+    if not ok:
+        raise RuntimeError(f"card vs CPU xv scores differ by {err}")
 
 
 def phase_rounds(torch, models, x, rounds, iters=10):
@@ -1170,6 +1384,8 @@ def main(argv):
             "chol_solve": phase_chol_solve(torch, chol),
             **phase_gmm_kernels(torch)}
     phase_small_reference(torch)
+    phase_xv_blocks(torch)
+    phase_xv_small_reference(torch)
     wrappers = {"cholesky_rt": chol.cholesky_rt,
                 "cholesky_rt_dinv": chol.cholesky_rt_dinv,
                 "chol_solve": chol.chol_solve,
@@ -1181,6 +1397,9 @@ def main(argv):
         phase_rounds(torch, {n: models[n] for n in (
             "slice_fast_default", "slice_chol_dinv", "slice_chol_solve")},
             x, int(argv[argv.index("--rounds") + 1]))
+    del models, x
+    torch.cuda.empty_cache()
+    launches.update(phase_xv_slices(torch, wrappers, profile_dir))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"

@@ -1,0 +1,87 @@
+"""PGD-100 on xv-PLDA CSI-E on the port: the JAX package's bench.py default.
+
+    python -m speakerguard_tpu_torch.bench [--batch 512] [--iters 100]
+        [--wav-len 48000] [--warmup 1] [--reps 3] [--device cuda]
+
+Full-width xv-PLDA with random weights from numpy seed 0, 10 enrolled
+speakers and random labels drawn from the same generator, as bench.py draws
+them; PGD with eps 0.002, step 0.0004 and the Entropy loss on the model's
+default fast path (``FastPath()`` on the card, off on the CPU).  After
+``--warmup`` attacks, ``--reps`` attacks are timed on the host clock, each
+ending in a device synchronise.  Prints one JSON line in bench.py's shape:
+metric, value (utterances/s), unit, attack_success_rate_pct, batch, plus
+the device it ran on and the mean ms per PGD iteration.
+"""
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from speakerguard_tpu_torch import resolve_device
+from speakerguard_tpu_torch.attacks import PGD
+from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
+                                                   random_xv_plda_params)
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--batch", type=int, default=512)
+    p.add_argument("--iters", type=int, default=100)
+    p.add_argument("--wav-len", type=int, default=48000)
+    p.add_argument("--warmup", type=int, default=1)
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda)")
+    return p.parse_args(argv)
+
+
+def run(args) -> dict:
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(0)
+    model = XvPlda(random_xv_plda_params(rng, device=dev))
+    model.set_enrollment([str(i) for i in range(10)],
+                         rng.standard_normal((10, 150)).astype(np.float32))
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (args.batch, args.wav_len))
+                     .astype(np.float32), device=dev)
+    y = torch.tensor(rng.integers(0, 10, args.batch), device=dev)
+    atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
+              max_iter=args.iters, loss="Entropy")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for w in range(args.warmup):
+        atk.attack(x, y, rng=1000 + w)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(args.reps):
+        _, success = atk.attack(x, y, rng=i)
+    sync()
+    dt = (time.perf_counter() - t0) / args.reps
+    return {
+        "metric": f"pgd{args.iters}_xv_plda_utts_per_sec",
+        "value": args.batch / dt,
+        "unit": "utterances/sec",
+        "attack_success_rate_pct": 100.0 * sum(success) / len(success),
+        "batch": args.batch,
+        "wav_len": args.wav_len,
+        "ms_per_iter": dt * 1e3 / args.iters,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "fast_path": (None if model.fast_path is None
+                      else vars(model.fast_path)),
+    }
+
+
+def main(argv=None) -> int:
+    print(json.dumps(run(parse_args(argv))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,4 +1,4 @@
-"""Carry the JAX package's iv-PLDA weights across to the port.
+"""Carry the JAX package's iv-PLDA and xv-PLDA weights across to the port.
 
 ``from_jax_params(tree)`` takes a speakerguard_tpu ``IvPldaParams`` whose
 leaves were turned into numpy arrays (e.g. ``jax.tree.map(np.asarray, p)``),
@@ -11,6 +11,12 @@ bf16 fast-path copies (``quad_proj_bf16``, ``quad_packed_bf16``,
 carried float32 tensors to bf16 (round to nearest even on both sides):
 when the JAX tree holds them, or when ``fast_copies`` asks (default: on a
 CUDA device, where the port's fast path runs by default).
+
+An ``XvPldaParams`` tree (it has a ``tdnn`` field) comes back as the port's
+``XvPldaParams``: the TDNN's (k, in, out) conv weights and (in, out) linear
+weights transposed to PyTorch's (out, in, k) and (out, in), every other
+field carried as it is.  ``fast_copies`` does not apply: the TDNN's bf16
+blocks round their weights as they run, as the JAX package's do.
 """
 
 import numpy as np
@@ -21,6 +27,8 @@ from speakerguard_tpu_torch.models.gmm import FullGMMParams
 from speakerguard_tpu_torch.models.iv_plda import IvPldaParams
 from speakerguard_tpu_torch.models.ivector import IvectorExtractorParams
 from speakerguard_tpu_torch.models.plda import PLDAParams
+from speakerguard_tpu_torch.models.tdnn import BNStats, TDNNParams
+from speakerguard_tpu_torch.models.xv_plda import XvPldaParams
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -40,9 +48,32 @@ def _convert(cls, src, dev, fast_copies):
     return cls(**out)
 
 
-def from_jax_params(tree, device=None,
-                    fast_copies: bool | None = None) -> IvPldaParams:
+def _tdnn(t, dev) -> TDNNParams:
+    def bn(s):
+        return BNStats(_tensor(s.mean, dev), _tensor(s.var, dev))
+
+    def lin(a):
+        return _tensor(np.asarray(a).T, dev)
+
+    return TDNNParams(
+        tuple(_tensor(np.asarray(w).transpose(2, 1, 0), dev)
+              for w in t.conv_w),
+        tuple(_tensor(b, dev) for b in t.conv_b),
+        tuple(bn(s) for s in t.bn_tdnn),
+        lin(t.fc1_w), _tensor(t.fc1_b, dev), bn(t.bn_fc1),
+        lin(t.fc2_w), _tensor(t.fc2_b, dev), bn(t.bn_fc2),
+        lin(t.fc3_w), _tensor(t.fc3_b, dev))
+
+
+def from_jax_params(tree, device=None, fast_copies: bool | None = None
+                    ) -> IvPldaParams | XvPldaParams:
     dev = resolve_device(device)
+    if hasattr(tree, "tdnn"):
+        return XvPldaParams(
+            tdnn=_tdnn(tree.tdnn, dev),
+            plda=_convert(PLDAParams, tree.plda, dev, False),
+            emb_mean=_tensor(tree.emb_mean, dev),
+            transform_mat=_tensor(tree.transform_mat, dev))
     if fast_copies is None:
         fast_copies = dev.type == "cuda"
     return IvPldaParams(

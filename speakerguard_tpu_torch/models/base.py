@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from speakerguard_tpu_torch.utils import kaldi_io
 from speakerguard_tpu_torch.utils.ranges import check_input_range
 
 NEG_INF = float("-inf")
@@ -55,6 +56,14 @@ class FastPath:
     dft_bf16           SG_DFT_FAST_PRECISION=default (models/base.py
                        fast_dft_precision): the frontend's two DFT matmuls
                        take bf16 operands with f32 accumulation.
+    tdnn_fast          SG_TDNN_FAST (models/tdnn.py tdnn_fast_bwd_active):
+                       the x-vector TDNN's conv blocks and stats pooling run
+                       as hand-written autograd Functions that save the ReLU
+                       mask instead of the activations.
+    tdnn_bf16_act      SG_TDNN_BF16_ACT (models/tdnn.py tdnn_bf16_act_active):
+                       with tdnn_fast, the TDNN's activations and their
+                       cotangents flow in bf16 between layers, on the CPU
+                       too, as in the JAX package.
 
     The TPU-only knobs SG_GMM_PRECISION, SG_GMM_BWD_PRECISION, SG_CHOL_NB,
     SG_CHOL_BTILE and SG_CHOL_BF16_IN have no counterpart: they set MXU pass
@@ -71,6 +80,8 @@ class FastPath:
     ivec_l_bf16: bool = True
     chol_bf16_updates: bool = True
     dft_bf16: bool = True
+    tdnn_fast: bool = True
+    tdnn_bf16_act: bool = True
 
 
 def decide(scores: torch.Tensor, threshold: float):
@@ -103,6 +114,7 @@ class SRSModel(nn.Module):
     range_type: str = "origin"
     threshold: float = NEG_INF
     spk_ids: list = None
+    fast: FastPath | None = None
 
     @property
     def num_spks(self) -> int:
@@ -111,6 +123,46 @@ class SRSModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.buffers()).device
+
+    @property
+    def fast_path(self) -> FastPath | None:
+        """The fast path's configuration, or None when it is off: ``fast``
+        as given, and for ``fast=None`` the defaults on a CUDA device and
+        off on the CPU (the JAX package's SG_FAST=auto)."""
+        fast = self.fast
+        if fast is None:
+            fast = FastPath(enabled=self.device.type == "cuda")
+        return fast if fast.enabled else None
+
+    def _fast_on(self, fast: bool) -> FastPath | None:
+        return self.fast_path if fast else None
+
+    # ---- enrolled speakers ----
+    def _init_enrollment(self, model_file):
+        """No speakers yet, or those of a Kaldi-format enroll model file;
+        call after the parameters are registered."""
+        self.spk_ids = None
+        self.z_norm_means = self.z_norm_stds = None
+        self.register_buffer("enroll_embs", None)
+        if model_file is not None:
+            (_, spk_ids, z_means, z_stds,
+             embs) = kaldi_io.parse_enroll_model_file(model_file)
+            self.set_enrollment(spk_ids, embs, z_means, z_stds)
+
+    def set_enrollment(self, spk_ids, enroll_embs, z_norm_means=None,
+                       z_norm_stds=None):
+        self.spk_ids = list(spk_ids)
+        self.enroll_embs = torch.as_tensor(enroll_embs, dtype=torch.float32,
+                                           device=self.device)
+        self.z_norm_means = z_norm_means
+        self.z_norm_stds = z_norm_stds
+
+    def _enrolled(self, enroll_embs=None) -> torch.Tensor:
+        """``enroll_embs`` when given, else the enrolled speakers'."""
+        enroll = enroll_embs if enroll_embs is not None else self.enroll_embs
+        if enroll is None:
+            raise ValueError("model has no enrolled speakers")
+        return enroll
 
     # ---- ladder pieces (override) ----------------------------------------
     def _raw(self, wav, rng=None, fast=False):
@@ -135,8 +187,8 @@ class SRSModel(nn.Module):
 
     # ---- uniform API ----
     # fast=True marks an attack-gradient graph: models with a fast path
-    # (iv_plda) honor it, others ignore it.  make_decision has no such
-    # flag: decisions are always exact.
+    # (iv_plda, xv_plda) honor it, others ignore it.  make_decision has no
+    # such flag: decisions are always exact.
     def compute_feat(self, x, flag=1, rng=None, fast=False):
         assert flag in self.allowed_flags and flag != 0
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)

@@ -189,13 +189,7 @@ class IvPlda(SRSModel):
         self.register_buffer("transform_mat", params.transform_mat)
         self.mfcc_config = mfcc_config
         self.threshold = threshold if threshold is not None else NEG_INF
-        self.spk_ids = None
-        self.z_norm_means = self.z_norm_stds = None
-        self.register_buffer("enroll_embs", None)
-        if model_file is not None:
-            (_, spk_ids, z_means, z_stds,
-             embs) = kaldi_io.parse_enroll_model_file(model_file)
-            self.set_enrollment(spk_ids, embs, z_means, z_stds)
+        self._init_enrollment(model_file)
 
     @property
     def params(self) -> IvPldaParams:
@@ -203,27 +197,6 @@ class IvPlda(SRSModel):
                   for g, cls in _GROUPS.items()}
         return IvPldaParams(emb_mean=self.emb_mean,
                             transform_mat=self.transform_mat, **groups)
-
-    def set_enrollment(self, spk_ids, enroll_embs, z_norm_means=None,
-                       z_norm_stds=None):
-        self.spk_ids = list(spk_ids)
-        self.enroll_embs = torch.as_tensor(enroll_embs, dtype=torch.float32,
-                                           device=self.emb_mean.device)
-        self.z_norm_means = z_norm_means
-        self.z_norm_stds = z_norm_stds
-
-    @property
-    def fast_path(self) -> FastPath | None:
-        """The fast path's configuration, or None when it is off: ``fast``
-        as given, and for ``fast=None`` the defaults on a CUDA device and
-        off on the CPU."""
-        fast = self.fast
-        if fast is None:
-            fast = FastPath(enabled=self.device.type == "cuda")
-        return fast if fast.enabled else None
-
-    def _fast_on(self, fast: bool) -> FastPath | None:
-        return self.fast_path if fast else None
 
     def _raw(self, wav, rng=None, fast=False):
         fp = self._fast_on(fast)
@@ -258,8 +231,5 @@ class IvPlda(SRSModel):
             return make_fast_context(self.params, feats, fp.gmm_topk)
 
     def _scores_from_emb(self, emb, enroll_embs=None):
-        enroll = enroll_embs if enroll_embs is not None else self.enroll_embs
-        if enroll is None:
-            raise ValueError("model has no enrolled speakers")
-        return scores_from_emb(self.params, emb, enroll)
+        return scores_from_emb(self.params, emb, self._enrolled(enroll_embs))
 

@@ -44,6 +44,7 @@ SLICE_MODULES = [
     "models/iv_plda.py", "models/base.py", "ops/kaldi_mfcc.py",
     "attacks/gradient.py", "adaptive/eot.py", "convert.py",
     "ops/gmm_loglike.py", "ops/gmm_stats.py", "ops/_build.py",
+    "models/tdnn.py", "models/xv_plda.py", "bench.py",
 ]
 
 
