@@ -80,7 +80,18 @@ Phases, one JSON line each:
  13. slice_xv_fast_f32  the same with FastPath(tdnn_bf16_act=False),
               PGD-10.
  14. slice_xv_exact  the same with FastPath(enabled=False), PGD-10.
- 15. kernels  one line listing every ported kernel (fused_loglike,
+ 15. audionet_small_reference  the card's AudioNet scores and embeddings
+              (exact path) against the CPU's on weights from one numpy
+              seed.
+ 16. slice_audionet  AudioNet CSI-NE (the log-mel frontend and the CNN of
+              CONV_SPEC, 10 classes, weights from numpy seed 0), 512
+              utterances of 3 s: make_decision, then PGD-100 with
+              FastPath() (bf16 DFT, bf16 CNN), then FGSM (eps 0.002) on the
+              same batch, whose success must equal an exact re-decision of
+              its adversarial waves.  No hand kernel lies on this path:
+              every launch count is 0.
+ 17. slice_audionet_exact  the same with FastPath(enabled=False), PGD-10.
+ 18. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
               launches), with its launches on every slice.
 Then the card's name and power limit, and last the line
@@ -967,14 +978,17 @@ def build_model(torch, params, fast, loglike_kernel, enroll,
 
 
 def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
-              fields, batch=64, iters=10):
+              fields, batch=64, iters=10, task="CSI-E", fgsm=False):
     """make_decision, then PGD-`iters` on ``model``, after a 1-iteration
     warm-up (first-use costs: lazy module loading, allocator growth,
-    library handles).  Every wrapper's counts are set to 0 just before the
-    run and read just after; ``expected`` maps names to launch counts, and
-    every plain count must stay 0.  ``fields`` are the model's own fields
-    of the record (its name and shapes).  Returns the launch counts."""
-    from speakerguard_tpu_torch.attacks import PGD
+    library handles); with ``fgsm``, then FGSM (eps 0.002) on the same
+    batch and labels, whose success vector must equal a re-decision of its
+    adversarial waves (make_decision is the exact path).  Every wrapper's
+    counts are set to 0 just before the run and read just after;
+    ``expected`` maps names to launch counts, and every plain count must
+    stay 0.  ``fields`` are the model's own fields of the record (its name
+    and shapes); ``task`` names the task.  Returns the launch counts."""
+    from speakerguard_tpu_torch.attacks import FGSM, PGD
     t0 = time.perf_counter()
     PGD(model, task="CSI", epsilon=0.002, step_size=0.0004, max_iter=1,
         loss="Entropy").attack(x, torch.zeros(batch, dtype=torch.long,
@@ -997,13 +1011,29 @@ def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
     adver, success = atk.attack(x, labels, rng=0)
     torch.cuda.synchronize()
     pgd_s = time.perf_counter() - t0
+    fgsm_rec = None
+    if fgsm:
+        t0 = time.perf_counter()
+        f_adver, f_success = FGSM(model, task="CSI", epsilon=0.002,
+                                  loss="Entropy").attack(x, labels, rng=0)
+        torch.cuda.synchronize()
+        fgsm_s = time.perf_counter() - t0
+        with torch.no_grad():
+            redecided = (model.make_decision(f_adver)[0] != labels).tolist()
+        fgsm_rec = {"seconds": fgsm_s,
+                    "asr_pct": 100.0 * sum(f_success) / batch,
+                    "finite": bool(torch.isfinite(f_adver).all()),
+                    "within_eps": float((f_adver - x).abs().max())
+                    <= 0.002 + 1e-6,
+                    "matches_exact_redecision": redecided == f_success,
+                    "success": [int(v) for v in f_success]}
     launches = {k: w.launches for k, w in wrappers.items()}
     plain = {k: w.plain_calls for k, w in wrappers.items()}
 
     finite = bool(torch.isfinite(scores).all() and torch.isfinite(adver).all())
     within = float((adver - x).abs().max()) <= 0.002 + 1e-6
     fast = model.fast_path
-    rec = {"phase": name, **fields, "task": "CSI-E",
+    rec = {"phase": name, **fields, "task": task,
            "speakers": model.num_spks, "batch": batch,
            "samples": int(x.shape[1]), "attack": "PGD", "iterations": iters,
            "fast_path": None if fast is None else vars(fast),
@@ -1017,10 +1047,16 @@ def run_slice(torch, name, model, x, wrappers, expected, profile_dir,
            "success": [int(s) for s in success],
            "launches": launches, "launches_expected": expected,
            "plain_calls": plain}
+    if fgsm_rec is not None:
+        rec["fgsm"] = fgsm_rec
     emit(rec)
     if not (finite and within
             and list(scores.shape) == [batch, model.num_spks]):
         raise RuntimeError(f"{name} output check failed: {rec}")
+    if fgsm_rec is not None and not (fgsm_rec["finite"]
+                                     and fgsm_rec["within_eps"]
+                                     and fgsm_rec["matches_exact_redecision"]):
+        raise RuntimeError(f"{name} FGSM check failed: {fgsm_rec}")
     wrong = {k: v for k, v in expected.items() if launches[k] != v}
     if wrong or any(plain.values()):
         raise RuntimeError(f"{name}: launches {launches} (expected "
@@ -1115,6 +1151,82 @@ def phase_xv_slices(torch, wrappers, profile_dir):
                               {k: 0 for k in wrappers}, profile_dir, fields,
                               batch, iters)
     return out
+
+
+def phase_audionet_slices(torch, wrappers, profile_dir):
+    """Full-width AudioNet (CONV_SPEC, 32 log-mel bins, n_fft 1024, 10
+    classes, weights from numpy seed 0 as the bench draws them), task
+    CSI-NE, 512 utterances of 3 s (T=300 frames); make_decision, then PGD
+    (eps 0.002, step 0.0004, Entropy) and FGSM (eps 0.002) on the same
+    batch: PGD-100 with FastPath() (bf16 DFT, bf16 CNN), PGD-10 on the
+    exact path.  No hand kernel lies on this path: every wrapper's launch
+    count is 0.  Returns {slice: launch counts}."""
+    from speakerguard_tpu_torch.models.audionet import (CONV_SPEC, AudioNet,
+                                                        init_audionet)
+    from speakerguard_tpu_torch.models.base import FastPath
+    batch, length = 512, 48000
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    pair = init_audionet(rng, 10, device="cuda")
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (batch, length)).astype(
+        np.float32), device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "setup_audionet", "seconds": time.perf_counter() - t0})
+    fields = {"model": "audionet", "conv_spec": CONV_SPEC, "n_mels": 32,
+              "n_fft": 1024, "classes": 10}
+    slices = [  # (name, FastPath, PGD iterations)
+        ("slice_audionet", FastPath(), 100),
+        ("slice_audionet_exact", FastPath(enabled=False), 10),
+    ]
+    out = {}
+    for name, fast, iters in slices:
+        out[name] = run_slice(torch, name, AudioNet(*pair, fast=fast), x,
+                              wrappers, {k: 0 for k in wrappers},
+                              profile_dir, fields, batch, iters,
+                              task="CSI-NE", fgsm=True)
+    return out
+
+
+def phase_audionet_small_reference(torch):
+    """The card's AudioNet scores and embeddings against the CPU's, exact
+    path, on weights from the same numpy seed whose BN running stats are
+    first set on the CPU to the batch statistics of a few waves (so that
+    the scores are O(1) and differ between waves), at the CPU tests'
+    score bar."""
+    from speakerguard_tpu_torch.models.audionet import (AudioNet,
+                                                        audionet_logits,
+                                                        init_audionet)
+    from speakerguard_tpu_torch.models.base import FastPath
+    from speakerguard_tpu_torch.ops.logmel import audionet_logmel
+    params, state = init_audionet(np.random.default_rng(99), 10,
+                                  device="cpu")
+    feats = audionet_logmel(torch.tensor(np.random.default_rng(7).uniform(
+        -0.3, 0.3, (8, 16000)).astype(np.float32)))
+    for _ in range(40):
+        state = audionet_logits(params, state, feats, train=True)[2]
+    wavs = np.random.default_rng(5).uniform(-0.3, 0.3, (4, 16000)).astype(
+        np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = AudioNet(params, state, fast=FastPath(enabled=False)).to(dev)
+        with torch.no_grad():
+            scores, emb = model.forward(torch.tensor(wavs, device=dev),
+                                        return_emb=True)
+        out[dev] = (scores.cpu(), emb.cpu())
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    emb_err = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    ok = bool(torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                             atol=2e-3)
+              and torch.allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                                 atol=2e-3))
+    emit({"phase": "audionet_small_reference", "max_abs_err": err,
+          "max_abs_score": float(out["cpu"][0].abs().max()),
+          "emb_max_abs_err": emb_err,
+          "tolerance": "rtol 1e-4, atol 2e-3 (scores and embeddings)",
+          "ok": ok})
+    if not ok:
+        raise RuntimeError(f"card vs CPU AudioNet scores differ by {err}, "
+                           f"embeddings by {emb_err}")
 
 
 def bf16_ulp(torch, a):
@@ -1400,6 +1512,9 @@ def main(argv):
     del models, x
     torch.cuda.empty_cache()
     launches.update(phase_xv_slices(torch, wrappers, profile_dir))
+    torch.cuda.empty_cache()
+    phase_audionet_small_reference(torch)
+    launches.update(phase_audionet_slices(torch, wrappers, profile_dir))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"

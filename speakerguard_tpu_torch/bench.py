@@ -1,11 +1,14 @@
-"""PGD-100 on xv-PLDA CSI-E on the port: the JAX package's bench.py default.
+"""PGD-100 on the port: the JAX package's bench.py for xv-PLDA (its default)
+and AudioNet (its BENCH_MODEL=audionet).
 
-    python -m speakerguard_tpu_torch.bench [--batch 512] [--iters 100]
-        [--wav-len 48000] [--warmup 1] [--reps 3] [--device cuda]
+    python -m speakerguard_tpu_torch.bench [--model {xv_plda,audionet}]
+        [--batch 512] [--iters 100] [--wav-len 48000] [--warmup 1]
+        [--reps 3] [--device cuda]
 
-Full-width xv-PLDA with random weights from numpy seed 0, 10 enrolled
-speakers and random labels drawn from the same generator, as bench.py draws
-them; PGD with eps 0.002, step 0.0004 and the Entropy loss on the model's
+The weights and inputs are drawn from numpy seed 0 in bench.py's order:
+xv-PLDA at full width with 10 enrolled speakers (CSI-E), or AudioNet
+(``init_audionet(rng, 10)``, CSI-NE), then the waves and random labels.
+PGD with eps 0.002, step 0.0004 and the Entropy loss on the model's
 default fast path (``FastPath()`` on the card, off on the CPU).  After
 ``--warmup`` attacks, ``--reps`` attacks are timed on the host clock, each
 ending in a device synchronise.  Prints one JSON line in bench.py's shape:
@@ -23,12 +26,15 @@ import torch
 
 from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.attacks import PGD
+from speakerguard_tpu_torch.models.audionet import AudioNet, init_audionet
 from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
                                                    random_xv_plda_params)
 
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model", choices=("xv_plda", "audionet"),
+                   default="xv_plda")
     p.add_argument("--batch", type=int, default=512)
     p.add_argument("--iters", type=int, default=100)
     p.add_argument("--wav-len", type=int, default=48000)
@@ -42,9 +48,13 @@ def parse_args(argv):
 def run(args) -> dict:
     dev = resolve_device(args.device)
     rng = np.random.default_rng(0)
-    model = XvPlda(random_xv_plda_params(rng, device=dev))
-    model.set_enrollment([str(i) for i in range(10)],
-                         rng.standard_normal((10, 150)).astype(np.float32))
+    if args.model == "audionet":
+        model = AudioNet(*init_audionet(rng, 10, device=dev))
+    else:
+        model = XvPlda(random_xv_plda_params(rng, device=dev))
+        model.set_enrollment([str(i) for i in range(10)],
+                             rng.standard_normal((10, 150)).astype(
+                                 np.float32))
     x = torch.tensor(rng.uniform(-0.3, 0.3, (args.batch, args.wav_len))
                      .astype(np.float32), device=dev)
     y = torch.tensor(rng.integers(0, 10, args.batch), device=dev)
@@ -64,7 +74,7 @@ def run(args) -> dict:
     sync()
     dt = (time.perf_counter() - t0) / args.reps
     return {
-        "metric": f"pgd{args.iters}_xv_plda_utts_per_sec",
+        "metric": f"pgd{args.iters}_{args.model}_utts_per_sec",
         "value": args.batch / dt,
         "unit": "utterances/sec",
         "attack_success_rate_pct": 100.0 * sum(success) / len(success),

@@ -1,4 +1,5 @@
-"""Carry the JAX package's iv-PLDA and xv-PLDA weights across to the port.
+"""Carry the JAX package's iv-PLDA, xv-PLDA and AudioNet weights across to
+the port.
 
 ``from_jax_params(tree)`` takes a speakerguard_tpu ``IvPldaParams`` whose
 leaves were turned into numpy arrays (e.g. ``jax.tree.map(np.asarray, p)``),
@@ -17,12 +18,19 @@ An ``XvPldaParams`` tree (it has a ``tdnn`` field) comes back as the port's
 weights transposed to PyTorch's (out, in, k) and (out, in), every other
 field carried as it is.  ``fast_copies`` does not apply: the TDNN's bf16
 blocks round their weights as they run, as the JAX package's do.
+
+A JAX ``AudioNet.params`` pair ``(AudioNetParams, AudioNetState)`` comes
+back as the port's pair (``models.audionet.from_jax_layout``: conv1's HWIO
+weight as OIHW, each block's (k, in, out) weight as (out, in, k)).
 """
 
 import numpy as np
 import torch
 
 from speakerguard_tpu_torch import resolve_device
+from speakerguard_tpu_torch.models.audionet import (AudioNetParams,
+                                                    AudioNetState,
+                                                    from_jax_layout)
 from speakerguard_tpu_torch.models.gmm import FullGMMParams
 from speakerguard_tpu_torch.models.iv_plda import IvPldaParams
 from speakerguard_tpu_torch.models.ivector import IvectorExtractorParams
@@ -66,8 +74,11 @@ def _tdnn(t, dev) -> TDNNParams:
 
 
 def from_jax_params(tree, device=None, fast_copies: bool | None = None
-                    ) -> IvPldaParams | XvPldaParams:
+                    ) -> (IvPldaParams | XvPldaParams
+                          | tuple[AudioNetParams, AudioNetState]):
     dev = resolve_device(device)
+    if not hasattr(tree, "_fields") and hasattr(tree[0], "conv1_w"):
+        return from_jax_layout(*tree, device=dev)
     if hasattr(tree, "tdnn"):
         return XvPldaParams(
             tdnn=_tdnn(tree.tdnn, dev),

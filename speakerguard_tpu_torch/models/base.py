@@ -64,6 +64,11 @@ class FastPath:
                        with tdnn_fast, the TDNN's activations and their
                        cotangents flow in bf16 between layers, on the CPU
                        too, as in the JAX package.
+    audionet_bf16      SG_AUDIONET_BF16 (models/audionet.py
+                       audionet_bf16_active): AudioNet's CNN runs with bf16
+                       weights, running stats and activations (conv -> BN
+                       -> ReLU -> pool), on the CPU too, as in the JAX
+                       package; its fc head stays float32.
 
     The TPU-only knobs SG_GMM_PRECISION, SG_GMM_BWD_PRECISION, SG_CHOL_NB,
     SG_CHOL_BTILE and SG_CHOL_BF16_IN have no counterpart: they set MXU pass
@@ -82,6 +87,33 @@ class FastPath:
     dft_bf16: bool = True
     tdnn_fast: bool = True
     tdnn_bf16_act: bool = True
+    audionet_bf16: bool = True
+
+
+def _children(tree):
+    names = tree._fields if hasattr(tree, "_fields") else range(len(tree))
+    return zip(names, tree)
+
+
+def tree_leaves(tree, prefix=""):
+    """(buffer name, leaf) for every leaf of a nest of NamedTuples and
+    tuples: ``tdnn__conv_w__0``, ``plda__mean``, ..."""
+    for name, sub in _children(tree):
+        path = f"{prefix}__{name}" if prefix else str(name)
+        if isinstance(sub, tuple):
+            yield from tree_leaves(sub, path)
+        else:
+            yield path, sub
+
+
+def tree_rebuild(template, get, prefix=""):
+    """The nest shaped like ``template`` with each leaf ``get(name)``."""
+    out = []
+    for name, sub in _children(template):
+        path = f"{prefix}__{name}" if prefix else str(name)
+        out.append(tree_rebuild(sub, get, path) if isinstance(sub, tuple)
+                   else get(path))
+    return type(template)(*out) if hasattr(template, "_fields") else tuple(out)
 
 
 def decide(scores: torch.Tensor, threshold: float):

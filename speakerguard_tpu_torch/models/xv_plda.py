@@ -23,7 +23,8 @@ import torch
 from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.models import ivector as iv_mod
 from speakerguard_tpu_torch.models import plda as plda_mod
-from speakerguard_tpu_torch.models.base import FastPath, NEG_INF, SRSModel
+from speakerguard_tpu_torch.models.base import (FastPath, NEG_INF, SRSModel,
+                                                tree_leaves, tree_rebuild)
 from speakerguard_tpu_torch.models.tdnn import (TDNNParams,
                                                 load_tdnn_from_torch_state,
                                                 random_tdnn, tdnn_embedding)
@@ -88,34 +89,6 @@ def process_emb(params: XvPldaParams, emb: torch.Tensor) -> torch.Tensor:
                                       normalize_length=True)
 
 
-# ----- parameters as buffers -----------------------------------------------
-
-def _children(tree):
-    names = tree._fields if hasattr(tree, "_fields") else range(len(tree))
-    return zip(names, tree)
-
-
-def _leaves(tree, prefix=""):
-    """(buffer name, leaf) for every leaf of a nest of NamedTuples and
-    tuples: ``tdnn__conv_w__0``, ``plda__mean``, ..."""
-    for name, sub in _children(tree):
-        path = f"{prefix}__{name}" if prefix else str(name)
-        if isinstance(sub, tuple):
-            yield from _leaves(sub, path)
-        else:
-            yield path, sub
-
-
-def _rebuild(template, get, prefix=""):
-    """The nest shaped like ``template`` with each leaf ``get(name)``."""
-    out = []
-    for name, sub in _children(template):
-        path = f"{prefix}__{name}" if prefix else str(name)
-        out.append(_rebuild(sub, get, path) if isinstance(sub, tuple)
-                   else get(path))
-    return type(template)(*out) if hasattr(template, "_fields") else tuple(out)
-
-
 class XvPlda(SRSModel):
     """The parameters are registered as buffers named by their path in
     ``XvPldaParams`` (``tdnn__conv_w__0``, ``emb_mean``, ...) so
@@ -129,8 +102,8 @@ class XvPlda(SRSModel):
                  fast: FastPath | None = None):
         super().__init__()
         self.fast = fast
-        self._template = _rebuild(params, lambda name: None)  # the shape
-        for name, t in _leaves(params):
+        self._template = tree_rebuild(params, lambda name: None)  # the shape
+        for name, t in tree_leaves(params):
             self.register_buffer(name, t)
         self.mfcc_config = mfcc_config
         self.threshold = threshold if threshold is not None else NEG_INF
@@ -138,7 +111,7 @@ class XvPlda(SRSModel):
 
     @property
     def params(self) -> XvPldaParams:
-        return _rebuild(self._template, lambda n: getattr(self, n))
+        return tree_rebuild(self._template, lambda n: getattr(self, n))
 
     def _raw(self, wav, rng=None, fast=False):
         fp = self._fast_on(fast)

@@ -152,40 +152,60 @@ def lifter_coeffs(cfg: MfccConfig) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _frame_index(length: int, cfg: MfccConfig,
-                 device: torch.device) -> torch.Tensor:
-    """(T, win) sample indices, cached on the device (a host-to-device copy
-    per call would stall the host on every frontend pass).  snip_edges=
-    False mirrors out-of-range samples symmetrically, edge sample included
-    (-1 -> 0, L -> L-1)."""
-    t = num_frames(length, cfg)
-    win, shift = cfg.window_size, cfg.window_shift
-    idx = np.arange(t)[:, None] * shift + np.arange(win)[None, :]
-    if not cfg.snip_edges:
-        idx = idx - (win // 2 - shift // 2)
+def _geometry_index(geometry: tuple, edge: str,
+                    device: torch.device) -> torch.Tensor:
+    """(T, win) sample indices of the frames of ``geometry`` = (length, t,
+    win, shift, pad), cached on the device (a host-to-device copy per call
+    would stall the host on every frontend pass).  Frame t starts at
+    sample t*shift - pad; out-of-range samples are mirrored, with the edge
+    sample duplicated for edge "kaldi" (-1 -> 0, L -> L-1) or left out for
+    "reflect" (-1 -> 1, L -> L-2, torch.stft's center=True; pad < L, so
+    that no sample is reflected twice)."""
+    length, t, win, shift, pad = geometry
+    idx = np.arange(t)[:, None] * shift - pad + np.arange(win)[None, :]
+    if edge == "kaldi":
         idx = np.where(idx < 0, -idx - 1, idx)
         idx = np.where(idx >= length, 2 * length - 1 - idx, idx)
+    elif edge == "reflect":
+        if idx.min() <= -length:  # a second reflection, which the fold
+            raise ValueError("wav too short to frame")  # does not undo
+        idx = np.abs(idx)
+        idx = np.where(idx >= length, 2 * (length - 1) - idx, idx)
+    else:
+        raise ValueError(f"unknown edge {edge!r}")
     if not ((idx >= 0).all() and (idx < length).all()):
         raise ValueError("wav too short to frame")
     return torch.as_tensor(idx, device=device)
 
 
+def _mfcc_geometry(length: int, cfg: MfccConfig) -> tuple:
+    """(length, t, win, shift, pad) of the MFCC frames; snip_edges=False
+    centres frame t on sample t*shift + shift//2."""
+    win, shift = cfg.window_size, cfg.window_shift
+    pad = 0 if cfg.snip_edges else win // 2 - shift // 2
+    return (length, num_frames(length, cfg), win, shift, pad)
+
+
+def _frame_index(length: int, cfg: MfccConfig,
+                 device: torch.device) -> torch.Tensor:
+    """(T, win) sample indices of the MFCC frames (edge "kaldi")."""
+    return _geometry_index(_mfcc_geometry(length, cfg), "kaldi", device)
+
+
 class _Framer(torch.autograd.Function):
-    """The framing gather of snip_edges=False with the JAX package's
-    scatter-free VJP (kaldi_mfcc.py _framer, edge "kaldi").  The cotangent
-    is folded in "extended" coordinates e = sample + pad, where frame t's
-    taps [k*shift, (k+1)*shift) land on the contiguous range
-    [(t + k)*shift, (t + k + 1)*shift): ceil(win/shift) reshape-adds, then
-    the two reflected edges are flip-added back (e in [0, pad) is sample
-    pad-1-e; e in [pad+L, ext) is sample L-1-(e-pad-L))."""
+    """The framing gather with the JAX package's scatter-free VJP
+    (kaldi_mfcc.py _framer).  The cotangent is folded in "extended"
+    coordinates e = sample + pad, where frame t's taps [k*shift,
+    (k+1)*shift) land on the contiguous range [(t + k)*shift, (t + k +
+    1)*shift): ceil(win/shift) reshape-adds, then the two reflected edges
+    are flip-added back.  Edge "kaldi": e in [0, pad) is sample pad-1-e and
+    e in [pad+L, ext) is sample L-1-(e-pad-L).  Edge "reflect": e in [0,
+    pad) is sample pad-e and e in [pad+L, ext) is sample L-2-(e-pad-L)."""
 
     @staticmethod
-    def forward(ctx, wav, cfg):
-        length = wav.shape[1]
-        ctx.geometry = (length, num_frames(length, cfg), cfg.window_size,
-                        cfg.window_shift, cfg.window_size // 2
-                        - cfg.window_shift // 2)
-        return wav[:, _frame_index(length, cfg, wav.device)]
+    def forward(ctx, wav, geometry, edge):
+        ctx.geometry, ctx.edge = geometry, edge
+        return wav[:, _geometry_index(geometry, edge, wav.device)]
 
     @staticmethod
     def backward(ctx, cot):
@@ -202,11 +222,13 @@ class _Framer(torch.autograd.Function):
                 b, t * shift)
         g = g_ext[:, pad:pad + length].clone()
         right = ext - pad - length
+        lo = 0 if ctx.edge == "kaldi" else 1   # the first mirrored sample
         if pad > 0:
-            g[:, :pad] += g_ext[:, :pad].flip(-1)
+            g[:, lo:lo + pad] += g_ext[:, :pad].flip(-1)
         if right > 0:
-            g[:, length - right:] += g_ext[:, pad + length:ext].flip(-1)
-        return g, None
+            g[:, length - lo - right:length - lo] += (
+                g_ext[:, pad + length:ext].flip(-1))
+        return g, None, None
 
 
 def frame_signal(wav: torch.Tensor, cfg: MfccConfig) -> torch.Tensor:
@@ -218,23 +240,26 @@ def frame_signal(wav: torch.Tensor, cfg: MfccConfig) -> torch.Tensor:
     """
     if cfg.snip_edges:
         return wav[:, _frame_index(wav.shape[1], cfg, wav.device)]
-    return _Framer.apply(wav, cfg)
+    return _Framer.apply(wav, _mfcc_geometry(wav.shape[1], cfg), "kaldi")
 
 
-def _dft_matrices(cfg: MfccConfig):
-    """(cos, sin) real-DFT matrices of shape (n_fft//2+1, win), float32,
-    with the preemphasis P[j,j]=1, P[j,j-1]=-preemph (P[0,0]=1-preemph for
-    Kaldi's duplicated first sample) and the window folded in:
-    M = DFT · diag(window) · P, computed in float64."""
-    win, n_fft = cfg.window_size, cfg.padded_window_size
-    preemph = cfg.preemphasis_coefficient
+def dft_matrices(window: np.ndarray, n_fft: int,
+                 preemph: float | None = None):
+    """(cos, sin) real-DFT matrices of shape (n_fft//2+1, len(window)),
+    float32, with the window and (when given) the preemphasis folded in:
+    M = DFT · diag(window) · P, computed in float64, where P[j,j]=1,
+    P[j,j-1]=-preemph and P[0,0]=1-preemph (Kaldi's duplicated first
+    sample)."""
+    win = len(window)
     k = np.arange(n_fft // 2 + 1, dtype=np.float64)[:, None]
     j = np.arange(win, dtype=np.float64)[None, :]
     ang = 2.0 * math.pi * k * j / n_fft
-    p = np.eye(win)
-    p[np.arange(1, win), np.arange(win - 1)] = -preemph
-    p[0, 0] = 1.0 - preemph
-    m = np.diag(feature_window(cfg).astype(np.float64)) @ p
+    m = np.diag(np.asarray(window, np.float64))
+    if preemph is not None:
+        p = np.eye(win)
+        p[np.arange(1, win), np.arange(win - 1)] = -preemph
+        p[0, 0] = 1.0 - preemph
+        m = m @ p
     return ((np.cos(ang) @ m).astype(np.float32),
             (np.sin(ang) @ m).astype(np.float32))
 
@@ -245,7 +270,9 @@ def _consts(cfg: MfccConfig, device: torch.device) -> dict:
     once per (config, device)."""
     def dev(a):
         return torch.as_tensor(a, device=device)
-    return {"dft": tuple(dev(m).T.contiguous() for m in _dft_matrices(cfg)),
+    dft = dft_matrices(feature_window(cfg), cfg.padded_window_size,
+                       cfg.preemphasis_coefficient)
+    return {"dft": tuple(dev(m).T.contiguous() for m in dft),
             "mel_t": dev(mel_banks(cfg)).T.contiguous(),
             "dct_t": dev(dct_matrix(cfg)).T.contiguous(),
             "lifter": dev(lifter_coeffs(cfg))}
