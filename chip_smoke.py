@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py                 # what the checks need
     python3 chip_smoke.py --profile DIR   # also a torch.profiler table of
-                                          # one PGD iteration of each slice,
-                                          # written to DIR/profile_<slice>.txt
+                                          # one PGD iteration of each slice
+                                          # (one CW2 inner step of the CW2
+                                          # slices), written to
+                                          # DIR/profile_<slice>.txt
     python3 chip_smoke.py --rounds N      # also N rounds of PGD-10 on the
                                           # three FastPath() slices in turn
 
@@ -91,7 +93,23 @@ Phases, one JSON line each:
               its adversarial waves.  No hand kernel lies on this path:
               every launch count is 0.
  17. slice_audionet_exact  the same with FastPath(enabled=False), PGD-10.
- 18. kernels  one line listing every ported kernel (fused_loglike,
+ 18. slice_cw2_sv  CW2 on iv-PLDA SV (BASELINE.json config 3): the weights of
+              slice, dither 0, one speaker enrolled from a wave, the
+              threshold the median of the 64 clean scores, the clean
+              decisions as labels (0 accept, -1 reject), so one untargeted
+              run is both denial of service and bypass.  make_decision,
+              then CW2 (3 binary-search steps of 50 Adam steps, early stop
+              off, initial const 10: 3 x 51 inner evaluations) on the exact
+              path: cholesky_rt 1 + 153.  Its success must equal an exact
+              re-decision of its audio and a failed wave must come back
+              unchanged.  Then CWinf (eps 0.002, 10 iterations) on the same
+              batch, counted apart: cholesky_rt 11.
+ 19. slice_cw2_sv_fast  the same batch, threshold and labels with the
+              default dither, FastPath(gmm_topk=0, stats_kernel=True),
+              loglike_kernel=True and CW2(fast=True): stats_fwd and
+              stats_bwd 153, cholesky_rt 155 and fused_loglike 2 (the exact
+              make_decision and the re-verification of the returned audio).
+ 20. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
               launches), with its launches on every slice.
 Then the card's name and power limit, and last the line
@@ -1229,6 +1247,178 @@ def phase_audionet_small_reference(torch):
                            f"embeddings by {emb_err}")
 
 
+def run_cw2_slice(torch, name, model, x, labels, wrappers, expected,
+                  expected_cwinf, profile_dir, fast, bss=3, iters=50):
+    """make_decision, then CW2 on task SV (``bss`` binary-search steps of
+    ``iters`` Adam steps, early stop off, initial const 10; ``fast`` scores
+    its inner loop on the fast path), then CWinf (eps 0.002, step 0.0004,
+    10 iterations) on the same batch, after a warm-up CW2 of one step.
+    The counts are set to 0 just before make_decision and read just after
+    CW2 (``expected``), then set to 0 again around CWinf
+    (``expected_cwinf``); every plain count must stay 0.  Hard checks:
+    finite audio, the (B, 1) score shape, CW2's success equal to an exact
+    re-decision of its audio, each failed wave returned unchanged, CWinf
+    within eps.  Returns the CW2 run's launch counts."""
+    from speakerguard_tpu_torch.attacks import CW2, CWinf
+    batch = x.shape[0]
+    kw = dict(task="SV", stop_early=False, initial_const=10.0, fast=fast)
+    t0 = time.perf_counter()
+    CW2(model, binary_search_steps=1, max_iter=1, **kw).attack(x, labels,
+                                                               rng=0)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    for w in wrappers.values():
+        w.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        _, scores = model.make_decision(x)
+    atk = CW2(model, binary_search_steps=bss, max_iter=iters, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adver, success = atk.attack(x, labels, rng=0)
+    torch.cuda.synchronize()
+    cw2_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    plain = {k: w.plain_calls for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with torch.no_grad():
+        redecided = (model.make_decision(adver)[0] != labels).tolist()
+    unchanged = all(torch.equal(adver[i], x[i])
+                    for i, s in enumerate(success) if not s)
+
+    for w in wrappers.values():
+        w.reset_counts()
+    t0 = time.perf_counter()
+    c_adver, c_success = CWinf(model, task="SV", epsilon=0.002,
+                               step_size=0.0004, max_iter=10).attack(
+        x, labels, rng=0)
+    torch.cuda.synchronize()
+    cwinf_s = time.perf_counter() - t0
+    c_launches = {k: w.launches for k, w in wrappers.items()}
+    c_plain = {k: w.plain_calls for k, w in wrappers.items()}
+    with torch.no_grad():
+        c_redecided = (model.make_decision(c_adver)[0] != labels).tolist()
+
+    evals = bss * (iters + 1)
+    finite = bool(torch.isfinite(scores).all() and torch.isfinite(adver).all()
+                  and torch.isfinite(c_adver).all())
+    within = float((c_adver - x).abs().max()) <= 0.002 + 1e-6
+    fp = model.fast_path
+    rec = {"phase": name, "model": "iv_plda", "C": 2048, "D": 72, "IV": 600,
+           "R": 200, "loglike_kernel": model.loglike_kernel,
+           "dither": model.mfcc_config.dither, "task": "SV",
+           "threshold": model.threshold, "batch": batch,
+           "samples": int(x.shape[1]),
+           "labels_accept_reject": [int((labels == 0).sum()),
+                                    int((labels == -1).sum())],
+           "attack": "CW2", "cw2_fast": fast, "binary_search_steps": bss,
+           "max_iter": iters, "inner_evaluations": evals,
+           "fast_path": None if fp is None else vars(fp),
+           "warmup_cw2_s": warmup_s, "cw2_s": cw2_s,
+           "cw2_ms_per_inner_iter": cw2_s * 1e3 / evals,
+           "cw2_utts_per_s": batch / cw2_s,
+           "asr_pct": 100.0 * sum(success) / batch,
+           "peak_mem_gib": peak, "scores_shape": list(scores.shape),
+           "finite": finite,
+           "matches_exact_redecision": redecided == success,
+           "failed_waves_unchanged": unchanged,
+           "success": [int(v) for v in success],
+           "consts": atk.consts.tolist(),
+           "launches": launches, "launches_expected": expected,
+           "plain_calls": plain,
+           "cwinf": {"seconds": cwinf_s, "ms_per_iter": cwinf_s * 1e3 / 10,
+                     "asr_pct": 100.0 * sum(c_success) / batch,
+                     "within_eps": within,
+                     "matches_exact_redecision": c_redecided == c_success,
+                     "success": [int(v) for v in c_success],
+                     "launches": c_launches,
+                     "launches_expected": expected_cwinf,
+                     "plain_calls": c_plain}}
+    emit(rec)
+    if not (finite and within and list(scores.shape) == [batch, 1]
+            and rec["matches_exact_redecision"] and unchanged):
+        raise RuntimeError(f"{name} output check failed: {rec}")
+    wrong = {k: v for k, v in expected.items() if launches[k] != v}
+    wrong.update({f"cwinf_{k}": v for k, v in expected_cwinf.items()
+                  if c_launches[k] != v})
+    if wrong or any(plain.values()) or any(c_plain.values()):
+        raise RuntimeError(f"{name}: launches {launches}, CWinf "
+                           f"{c_launches} (expected {expected}, "
+                           f"{expected_cwinf}), plain calls {plain}, "
+                           f"{c_plain}")
+    if profile_dir:
+        profile_one_iteration(
+            torch, model, x, labels, profile_dir, name,
+            CW2(model, binary_search_steps=1, max_iter=1, **kw),
+            "one CW2 binary-search step of one Adam step (two inner "
+            "evaluations)" + (" and the exact re-verification" if fast
+                              else ""))
+    return launches
+
+
+def phase_cw2_slices(torch, wrappers, profile_dir):
+    """CW2 and CWinf on iv-PLDA SV, BASELINE.json config 3, on the full-width
+    weights of phase_slices (drawn again from the same numpy seed, so that
+    the phases between hold no iv-PLDA weights): one speaker enrolled from
+    a wave, 64
+    utterances of 3 s, the threshold the median of their clean scores
+    (exact, dither 0) and their clean decisions as labels.  slice_cw2_sv
+    runs the exact path without dither; slice_cw2_sv_fast the fused stats
+    and loglike kernels with the default dither.  Returns {slice: launch
+    counts}."""
+    import dataclasses
+    from speakerguard_tpu_torch.models.base import FastPath
+    from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
+                                                       random_iv_plda_params)
+    from speakerguard_tpu_torch.ops.kaldi_mfcc import IV_PLDA_MFCC
+    batch, length = 64, 48000
+    params = random_iv_plda_params(np.random.default_rng(0), 2048, 72, 600,
+                                   200, device="cuda")
+    rng = np.random.default_rng(2)
+    enroll_wav = torch.tensor(rng.uniform(-0.3, 0.3, (1, length)).astype(
+        np.float32), device="cuda")
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (batch, length)).astype(
+        np.float32), device="cuda")
+    no_dither = dataclasses.replace(IV_PLDA_MFCC, dither=0.0)
+
+    def build(fast, kernel, mfcc, threshold=None, enroll=None):
+        model = IvPlda(params, threshold=threshold, mfcc_config=mfcc,
+                       fast=fast, loglike_kernel=kernel)
+        if enroll is not None:
+            model.set_enrollment(["spk0"], enroll)
+        return model
+
+    with torch.no_grad():
+        enroll = build(FastPath(enabled=False), False,
+                       no_dither).embedding(enroll_wav)
+        clean = build(FastPath(enabled=False), False, no_dither,
+                      enroll=enroll).score(x)[:, 0]
+    threshold = float(np.median(clean.cpu().numpy()))
+    labels = torch.where(clean > threshold, 0, -1).long()
+    evals = 3 * 51
+    slices = [  # (name, FastPath, loglike_kernel, mfcc, CW2 fast, counts)
+        ("slice_cw2_sv", FastPath(enabled=False), False, no_dither, False,
+         {"cholesky_rt": 1 + evals}, {"cholesky_rt": 11}),
+        ("slice_cw2_sv_fast", FastPath(gmm_topk=0, stats_kernel=True), True,
+         IV_PLDA_MFCC, True,
+         {"cholesky_rt": 2 + evals, "fused_loglike": 2, "stats_fwd": evals,
+          "stats_bwd": evals},
+         {"cholesky_rt": 11, "fused_loglike": 1, "stats_fwd": 10,
+          "stats_bwd": 10}),
+    ]
+    out = {}
+    for name, fast, kernel, mfcc, cw2_fast, counts, cwinf_counts in slices:
+        model = build(fast, kernel, mfcc, threshold, enroll)
+        out[name] = run_cw2_slice(
+            torch, name, model, x, labels, wrappers,
+            {k: counts.get(k, 0) for k in wrappers},
+            {k: cwinf_counts.get(k, 0) for k in wrappers}, profile_dir,
+            cw2_fast)
+    return out
+
+
 def bf16_ulp(torch, a):
     """The spacing of bf16 numbers at |a| (8 significant bits)."""
     a = a.abs().clamp(min=2.0 ** -126)
@@ -1408,11 +1598,16 @@ def phase_rounds(torch, models, x, rounds, iters=10):
           "median": {n: statistics.median(v) for n, v in times.items()}})
 
 
-def profile_one_iteration(torch, model, x, labels, out_dir, name):
+def profile_one_iteration(torch, model, x, labels, out_dir, name,
+                          atk=None, note=None):
+    """A torch.profiler table of one attack on ``model``: by default one
+    PGD iteration plus the exact final evaluation."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from speakerguard_tpu_torch.attacks import PGD
-    atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
-              max_iter=1, loss="Entropy")
+    if atk is None:
+        atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
+                  max_iter=1, loss="Entropy")
+        note = "one PGD iteration plus the exact final evaluation"
     atk.attack(x, labels, rng=0)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -1438,8 +1633,8 @@ def profile_one_iteration(torch, model, x, labels, out_dir, name):
         f.write(table)
     top = sorted(events, key=lambda e: -dev_us(e))
     emit({"phase": "profile", "slice": name, "iterations_profiled": 1,
-          "note": "one PGD iteration plus the exact final evaluation; "
-                  "wall time includes the profiler's own overhead",
+          "note": note + "; wall time includes the profiler's own "
+                         "overhead",
           "wall_ms": wall_ms, "device_ms": device_ms,
           "device_busy_share": (device_ms / wall_ms if device_ms
                                 else None),
@@ -1515,6 +1710,8 @@ def main(argv):
     torch.cuda.empty_cache()
     phase_audionet_small_reference(torch)
     launches.update(phase_audionet_slices(torch, wrappers, profile_dir))
+    torch.cuda.empty_cache()
+    launches.update(phase_cw2_slices(torch, wrappers, profile_dir))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"

@@ -1,1 +1,2 @@
 from speakerguard_tpu_torch.attacks.gradient import FGSM, PGD, CWinf  # noqa: F401
+from speakerguard_tpu_torch.attacks.cw2 import CW2  # noqa: F401

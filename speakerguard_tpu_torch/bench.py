@@ -1,19 +1,25 @@
-"""PGD-100 on the port: the JAX package's bench.py for xv-PLDA (its default)
-and AudioNet (its BENCH_MODEL=audionet).
+"""PGD-100 or CW2 on the port: the JAX package's bench.py for xv-PLDA (its
+default), iv-PLDA (its BENCH_MODEL=iv_plda) and AudioNet (BENCH_MODEL=
+audionet), with PGD or (BENCH_ATTACK=cw2) CW2.
 
-    python -m speakerguard_tpu_torch.bench [--model {xv_plda,audionet}]
-        [--batch 512] [--iters 100] [--wav-len 48000] [--warmup 1]
-        [--reps 3] [--device cuda]
+    python -m speakerguard_tpu_torch.bench [--model {xv_plda,iv_plda,audionet}]
+        [--attack {pgd,cw2}] [--batch 512] [--iters 100] [--cw2-iters 200]
+        [--cw2-bss 3] [--wav-len 48000] [--warmup 1] [--reps 3]
+        [--device cuda]
 
 The weights and inputs are drawn from numpy seed 0 in bench.py's order:
-xv-PLDA at full width with 10 enrolled speakers (CSI-E), or AudioNet
+xv-PLDA at full width with 10 enrolled speakers (CSI-E), iv-PLDA at full
+width (C=2048, IV=600, R=200) with 10 enrolled speakers, or AudioNet
 (``init_audionet(rng, 10)``, CSI-NE), then the waves and random labels.
-PGD with eps 0.002, step 0.0004 and the Entropy loss on the model's
-default fast path (``FastPath()`` on the card, off on the CPU).  After
-``--warmup`` attacks, ``--reps`` attacks are timed on the host clock, each
-ending in a device synchronise.  Prints one JSON line in bench.py's shape:
-metric, value (utterances/s), unit, attack_success_rate_pct, batch, plus
-the device it ran on and the mean ms per PGD iteration.
+PGD runs ``--iters`` iterations with eps 0.002, step 0.0004 and the Entropy
+loss on the model's default fast path (``FastPath()`` on the card, off on
+the CPU).  CW2 runs ``--cw2-bss`` binary-search steps of ``--cw2-iters``
+Adam steps (task CSI, early stop off, initial const 10) on the exact path;
+its metric counts cw2-iters x cw2-bss iterations, as bench.py's does.
+After ``--warmup`` attacks, ``--reps`` attacks are timed on the host clock,
+each ending in a device synchronise.  Prints one JSON line in bench.py's
+shape: metric, value (utterances/s), unit, attack_success_rate_pct, batch,
+plus the device it ran on and the mean ms per counted iteration.
 """
 
 import argparse
@@ -25,18 +31,23 @@ import numpy as np
 import torch
 
 from speakerguard_tpu_torch import resolve_device
-from speakerguard_tpu_torch.attacks import PGD
+from speakerguard_tpu_torch.attacks import CW2, PGD
 from speakerguard_tpu_torch.models.audionet import AudioNet, init_audionet
+from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
+                                                   random_iv_plda_params)
 from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
                                                    random_xv_plda_params)
 
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--model", choices=("xv_plda", "audionet"),
+    p.add_argument("--model", choices=("xv_plda", "iv_plda", "audionet"),
                    default="xv_plda")
+    p.add_argument("--attack", choices=("pgd", "cw2"), default="pgd")
     p.add_argument("--batch", type=int, default=512)
     p.add_argument("--iters", type=int, default=100)
+    p.add_argument("--cw2-iters", type=int, default=200)
+    p.add_argument("--cw2-bss", type=int, default=3)
     p.add_argument("--wav-len", type=int, default=48000)
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--reps", type=int, default=3)
@@ -50,6 +61,11 @@ def run(args) -> dict:
     rng = np.random.default_rng(0)
     if args.model == "audionet":
         model = AudioNet(*init_audionet(rng, 10, device=dev))
+    elif args.model == "iv_plda":
+        model = IvPlda(random_iv_plda_params(rng, device=dev))
+        model.set_enrollment([str(i) for i in range(10)],
+                             rng.standard_normal((10, 200)).astype(
+                                 np.float32))
     else:
         model = XvPlda(random_xv_plda_params(rng, device=dev))
         model.set_enrollment([str(i) for i in range(10)],
@@ -58,8 +74,16 @@ def run(args) -> dict:
     x = torch.tensor(rng.uniform(-0.3, 0.3, (args.batch, args.wav_len))
                      .astype(np.float32), device=dev)
     y = torch.tensor(rng.integers(0, 10, args.batch), device=dev)
-    atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
-              max_iter=args.iters, loss="Entropy")
+    if args.attack == "cw2":
+        # early stop off, so that the iteration count is deterministic
+        iters = args.cw2_iters * args.cw2_bss
+        atk = CW2(model, task="CSI", max_iter=args.cw2_iters,
+                  binary_search_steps=args.cw2_bss, stop_early=False,
+                  initial_const=10.0)
+    else:
+        iters = args.iters
+        atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
+                  max_iter=iters, loss="Entropy")
 
     def sync():
         if dev.type == "cuda":
@@ -74,13 +98,13 @@ def run(args) -> dict:
     sync()
     dt = (time.perf_counter() - t0) / args.reps
     return {
-        "metric": f"pgd{args.iters}_{args.model}_utts_per_sec",
+        "metric": f"{args.attack}{iters}_{args.model}_utts_per_sec",
         "value": args.batch / dt,
         "unit": "utterances/sec",
         "attack_success_rate_pct": 100.0 * sum(success) / len(success),
         "batch": args.batch,
         "wav_len": args.wav_len,
-        "ms_per_iter": dt * 1e3 / args.iters,
+        "ms_per_iter": dt * 1e3 / iters,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "fast_path": (None if model.fast_path is None

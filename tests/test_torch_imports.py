@@ -45,7 +45,7 @@ SLICE_MODULES = [
     "attacks/gradient.py", "adaptive/eot.py", "convert.py",
     "ops/gmm_loglike.py", "ops/gmm_stats.py", "ops/_build.py",
     "models/tdnn.py", "models/xv_plda.py", "bench.py",
-    "ops/logmel.py", "models/audionet.py",
+    "ops/logmel.py", "models/audionet.py", "attacks/cw2.py",
 ]
 
 
