@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile DIR   # also a torch.profiler table of
                                           # one PGD iteration of each slice
                                           # (one CW2 inner step of the CW2
-                                          # slices), written to
+                                          # slices, one NES iteration of the
+                                          # FAKEBOB slices), written to
                                           # DIR/profile_<slice>.txt
     python3 chip_smoke.py --rounds N      # also N rounds of PGD-10 on the
                                           # three FastPath() slices in turn
@@ -109,9 +110,35 @@ Phases, one JSON line each:
               loglike_kernel=True and CW2(fast=True): stats_fwd and
               stats_bwd 153, cholesky_rt 155 and fused_loglike 2 (the exact
               make_decision and the re-verification of the returned audio).
- 20. kernels  one line listing every ported kernel (fused_loglike,
+ 20. kernel (case nes)  stats_fwd at 816 x 300 rows and cholesky_rt at
+              B = 816 (f32 and bf16_updates), the shapes of one NES
+              iteration of slice_fakebob_osi_fast, against their plain
+              versions at the main-shape bars, with CUDA-event ms.
+ 21. slice_fakebob_osi  FAKEBOB on iv-PLDA OSI (BASELINE.json config 4):
+              the weights of slice, 10 speakers enrolled from waves, 16
+              utterances of 3 s, the model threshold the median of their
+              clean max scores (exact, dither 0), the clean decisions as
+              labels (speakers and rejects).  estimate_threshold on the two
+              rejected waves nearest below the threshold (step 0.1, eps
+              0.002, counted apart: cholesky_rt 2 + its NES bodies), then
+              make_decision and FAKEBOB-30 (eps 0.002, 50 samples, max lr
+              0.001, early stop off) at that estimate on the exact path:
+              cholesky_rt 1 + NES bodies.
+ 22. slice_fakebob_osi_fast  the same batch, model threshold, labels and
+              attack threshold with the default dither, FastPath(gmm_topk=0,
+              stats_kernel=True), loglike_kernel=True and FAKEBOB(fast=True):
+              stats_fwd = NES bodies, fused_loglike = 1 + guard evaluations
+              + 1, cholesky_rt = their sum; then the estimation again on
+              this model (stats_fwd 0, fused_loglike = cholesky_rt).
+ 23. slice_fakebob_xv  xv-PLDA at full width, FastPath(), 10 speakers, CSI,
+              128 utterances of 3 s: FAKEBOB-5 (fast=True) with the 51
+              evaluation points in 3 chunks of 17 (2176 waves each); every
+              hand-kernel count 0.  Each FAKEBOB slice's success must equal
+              an exact re-evaluation of the margin loss of its audio.
+ 24. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
-              launches), with its launches on every slice.
+              launches; stats_fwd and cholesky_rt with their NES-shape
+              case), with its launches on every slice.
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -159,16 +186,21 @@ def parse_ms(text):
     raise ValueError(f"unknown time unit in {text!r}")
 
 
-def check_kernels_per_call(torch, rec, fn, expected):
+def check_kernels_per_call(torch, rec, fn, expected, margin_s=0.1):
     """Count the device kernels that one call of ``fn`` runs, as
     torch.profiler's CUDA activity records them, into ``rec``, and raise
     unless there are ``expected``.  Copies and fills are device events but
-    not kernels."""
+    not kernels.  The call runs ``margin_s`` after the trace starts and
+    ends as long before it stops: the trace keeps only device events that
+    its host-clock window holds, and a kernel launched at once after the
+    start can fall before it."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         fn()
         torch.cuda.synchronize()
+        time.sleep(margin_s)
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     count = sum(not n.startswith(("Memcpy", "Memset")) for n in names)
@@ -1419,6 +1451,374 @@ def phase_cw2_slices(torch, wrappers, profile_dir):
     return out
 
 
+def phase_nes_kernels(torch, chol):
+    """stats_fwd and cholesky_rt at the shapes that one NES iteration of
+    slice_fakebob_osi_fast gives them: 16 utterances x 51 evaluation points
+    = 816 waves, 816 x 300 = 244,800 frames; 816 matrices of 600 x 600.
+    Each against its plain version at the bars of its main-shape row
+    (stats_fwd_check; cholesky_rt's blocked residual and plain error at
+    1e-5, f32 and bf16_updates), with CUDA-event ms and the bound.
+    Returns {kernel: record of the f32 case}."""
+    from speakerguard_tpu_torch.ops import gmm_stats as S
+    b, t, d, c = 16 * 51, 300, 72, 2048
+    p, x, _, _ = gmm_inputs(torch, b, t, d, c)
+    proj16 = p.quad_proj.to(torch.bfloat16)
+    got = S.stats_fwd(x, proj16, p.gconsts)
+    torch.cuda.synchronize()
+    rec = stats_fwd_check(x, got, S.stats_fwd_plain(x, proj16, p.gconsts),
+                          S.posteriors_plain(x, proj16, p.gconsts))
+    del got
+    rec = {"phase": "kernel", "kernel": "stats_fwd", "case": "nes",
+           "B": b, "T": t, "D": d, "C": c, "rows": b * t,
+           "max_abs_err": max(rec["zeroth_max_abs_err"],
+                              rec["first_max_abs_err"]), **rec,
+           "ms": cuda_ms(lambda: S.stats_fwd(x, proj16, p.gconsts), 2, 10),
+           "plain_ms": cuda_ms(
+               lambda: S.stats_fwd_plain(x, proj16, p.gconsts), 1, 2)}
+    rec["bound_ms"], rec["bound_by"] = gmm_bounds(b, t, d, c)["stats_fwd"]
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"stats_fwd at the NES shape: {rec}")
+    out = {"stats_fwd": rec}
+    del p, x, proj16
+    torch.cuda.empty_cache()
+
+    n, tol = 600, 1e-5
+    a = spd_batch(torch, "dominant", b, n, seed=n, dtype=torch.float32)
+    for upd in (False, True):
+        got = chol.cholesky_rt(a, bf16_updates=upd)
+        torch.cuda.synchronize()
+        want = chol.cholesky_rt_plain(a, bf16_updates=upd)
+        abs_err = float((got - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        lower_zero = bool(torch.all(torch.tril(got, -1) == 0))
+        resid = chol.blocked_residual(a, got, upd)
+        rec = {"phase": "kernel", "kernel": "cholesky_rt",
+               "case": "nes_bf16_updates" if upd else "nes_f32",
+               "input": "dominant", "shape": [b, n, n], "bf16_updates": upd,
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "tolerance_vs_plain": tol, "blocked_residual": resid,
+               "tolerance_residual": tol, "strictly_lower_zero": lower_zero,
+               "ms": cuda_ms(lambda: chol.cholesky_rt(a, upd), 3, 20),
+               "plain_ms": cuda_ms(lambda: chol.cholesky_rt_plain(a, upd),
+                                   1, 2)}
+        rec["bound_ms"], rec["bound_by"] = chol_bound_ms(b, n, 4, upd,
+                                                         chol.NB)
+        emit(rec)
+        del got, want
+        if not (lower_zero and resid <= tol and rel_err <= tol):
+            raise RuntimeError(f"cholesky_rt at the NES shape: {rec}")
+        out.setdefault("cholesky_rt", rec)
+    del a
+    torch.cuda.empty_cache()
+    return out
+
+
+def bounded_noise(torch, gen, limit, draws):
+    """A FAKEBOB ``noise_fn``: torch.randn from ``gen`` (the default's
+    draws), appending each iteration index to ``draws`` and raising once
+    ``limit`` is reached, since threshold estimation has no end of its own
+    while the model's threshold is out of reach."""
+    def fn(it, shape):
+        if it >= limit:
+            raise RuntimeError(f"threshold estimation took over {limit} "
+                               "NES steps")
+        draws.append(it)
+        return torch.randn(shape, generator=gen, device="cuda")
+    return fn
+
+
+def recording_exact_scores(model, batch):
+    """Wraps ``model.score`` so that the generator state of each exact
+    (``fast`` off) call on ``batch`` waves is recorded; returns that list.
+    FAKEBOB's last such call re-scores its returned audio, and replaying
+    the state there draws the same dither.  ``del model.score`` undoes
+    it."""
+    states, score = [], model.score
+
+    def recording(x, *args, rng=None, fast=False, **kw):
+        if not fast and rng is not None and x.shape[0] == batch:
+            states.append(rng.get_state())
+        return score(x, *args, rng=rng, fast=fast, **kw)
+
+    model.score = recording
+    return states
+
+
+def run_estimation(torch, model, waves, wrappers, fast):
+    """FAKEBOB.estimate_threshold (task OSI, eps 0.002, step 0.1, 50
+    samples, max lr 0.001) on ``waves``, with its own counts.  Returns
+    (estimate, NES bodies, noise draws, seconds, launches, plain calls)."""
+    from speakerguard_tpu_torch.attacks import FAKEBOB
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    draws = []
+    atk = FAKEBOB(model, task="OSI", epsilon=0.002, samples_per_draw=50,
+                  samples_per_draw_batch_size=50, max_lr=0.001, fast=fast,
+                  noise_fn=bounded_noise(torch, gen, 500, draws))
+    for w in wrappers.values():
+        w.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = atk.estimate_threshold(waves, step=0.1, rng=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (est, atk.estimate_bodies, len(draws), seconds,
+            {k: w.launches for k, w in wrappers.items()},
+            {k: w.plain_calls for k, w in wrappers.items()})
+
+
+def run_fakebob_slice(torch, name, model, x, labels, wrappers, task,
+                      threshold, atk_kw, expected_fn, fields, profile_dir):
+    """make_decision, then FAKEBOB(``atk_kw``) on ``model`` with the attack
+    threshold ``threshold``, after a warm-up attack of one NES iteration.
+    The counts are set to 0 just before make_decision and read just after
+    the attack; ``expected_fn(atk)`` gives the expected counts from the
+    attack's NES bodies and guard evaluations, and every plain count must
+    stay 0.  Hard checks: finite audio and scores within eps, the score
+    shape, and the success vector equal to the margin loss (< 0) of an
+    exact re-evaluation of the returned audio under ``threshold``, with
+    the dither draw of the attack's own re-evaluation where it made one.
+    Returns (launch counts, record)."""
+    from speakerguard_tpu_torch.attacks import FAKEBOB
+    from speakerguard_tpu_torch.attacks.losses import margin_loss
+    batch = x.shape[0]
+    kw = dict(threshold=threshold, task=task, **atk_kw)
+    t0 = time.perf_counter()
+    FAKEBOB(model, **{**kw, "max_iter": 0}).attack(x, labels, rng=1)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    for w in wrappers.values():
+        w.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        _, scores = model.make_decision(x)
+    atk = FAKEBOB(model, **kw)
+    states = recording_exact_scores(model, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adver, success = atk.attack(x, labels, rng=0)
+    torch.cuda.synchronize()
+    attack_s = time.perf_counter() - t0
+    del model.score
+    launches = {k: w.launches for k, w in wrappers.items()}
+    plain = {k: w.plain_calls for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with torch.no_grad():
+        gen = None
+        if states:
+            gen = torch.Generator(device="cuda")
+            gen.set_state(states[-1])
+        loss = margin_loss(model.score(adver, rng=gen), labels, task=task,
+                           threshold=threshold, clip_max=False)
+        decisions = model.make_decision(adver)[0]
+    expected = {k: 0 for k in wrappers}
+    expected.update(expected_fn(atk))
+    iters = atk.last_executed_iters
+    finite = bool(torch.isfinite(scores).all()
+                  and torch.isfinite(adver).all())
+    within = float((adver - x).abs().max()) <= atk.epsilon + 1e-6
+    fp = model.fast_path
+    rec = {"phase": name, **fields, "task": task, "threshold": threshold,
+           "model_threshold": model.threshold,
+           "dither": model.mfcc_config.dither, "speakers": model.num_spks,
+           "batch": batch, "samples": int(x.shape[1]),
+           "labels_rejected": int((labels == -1).sum()),
+           "attack": "FAKEBOB", **atk_kw,
+           "fast_path": None if fp is None else vars(fp),
+           "nes_waves_per_iter": batch * (atk.samples_per_draw // 2 * 2 + 1),
+           "warmup_1_iter_s": warmup_s, "attack_s": attack_s,
+           "executed_iters": iters, "guard_evals": atk.last_guard_evals,
+           "ms_per_nes_iter": attack_s * 1e3 / iters,
+           "utts_per_s": batch / attack_s,
+           "asr_pct": 100.0 * sum(success) / batch,
+           "model_decision_asr_pct": 100.0 * float(
+               (decisions != labels).float().mean()),
+           "peak_mem_gib": peak, "scores_shape": list(scores.shape),
+           "finite": finite, "within_eps": within,
+           "matches_exact_reevaluation": (loss < 0).tolist() == success,
+           "reevaluation_dither_replayed": bool(states),
+           "success": [int(v) for v in success],
+           "launches": launches, "launches_expected": expected,
+           "plain_calls": plain}
+    if not (finite and within and rec["matches_exact_reevaluation"]
+            and list(scores.shape) == [batch, model.num_spks]):
+        emit(rec)
+        raise RuntimeError(f"{name} output check failed")
+    wrong = {k: v for k, v in expected.items() if launches[k] != v}
+    if wrong or any(plain.values()):
+        emit(rec)
+        raise RuntimeError(f"{name}: launches {launches} (expected "
+                           f"{expected}), plain calls {plain}")
+    if profile_dir:
+        profile_one_iteration(
+            torch, model, x, labels, profile_dir, name,
+            FAKEBOB(model, **{**kw, "max_iter": 0}),
+            "one NES iteration" + (" with the exact evaluations of the "
+                                   "guard and the final re-scoring"
+                                   if atk.fast else ""))
+    return launches, rec
+
+
+def phase_fakebob_slices(torch, wrappers, profile_dir):
+    """FAKEBOB, BASELINE.json config 4.  iv-PLDA on the full-width weights
+    of phase_slices (drawn again from numpy seed 0), 10 speakers enrolled
+    from waves, task OSI, 16 utterances of 3 s; the model threshold is the
+    median of their clean max scores (exact, dither 0), the labels their
+    clean decisions (8 speakers, 8 rejects), so one untargeted run has
+    both branches.
+      slice_fakebob_osi        exact path, dither 0: estimate_threshold on
+                               the 2 rejected waves nearest below the
+                               threshold (counted apart: cholesky_rt 2 +
+                               NES bodies), then FAKEBOB-30 (fast=False) at
+                               that estimate: cholesky_rt 1 + NES bodies.
+      slice_fakebob_osi_fast   the default dither, FastPath(gmm_topk=0,
+                               stats_kernel=True), loglike_kernel=True,
+                               FAKEBOB(fast=True) at the same estimate:
+                               stats_fwd = NES bodies, fused_loglike =
+                               1 + guard evaluations + 1, cholesky_rt =
+                               their sum; the estimation again on this
+                               model (stats_fwd 0, fused_loglike =
+                               cholesky_rt: it ignores fast).
+      slice_fakebob_xv         xv-PLDA at full width, FastPath(), 10
+                               speakers, task CSI, batch 128, FAKEBOB-5
+                               (fast=True) with the 51 points in 3 chunks
+                               of 17: every hand-kernel count 0.
+    Returns {slice: launch counts}."""
+    import dataclasses
+    from speakerguard_tpu_torch.models.base import FastPath, decide
+    from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
+                                                       random_iv_plda_params)
+    from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
+                                                       random_xv_plda_params)
+    from speakerguard_tpu_torch.ops.kaldi_mfcc import IV_PLDA_MFCC
+    batch, length, n_spk = 16, 48000, 10
+    t0 = time.perf_counter()
+    params = random_iv_plda_params(np.random.default_rng(0), 2048, 72, 600,
+                                   200, device="cuda")
+    rng = np.random.default_rng(3)
+    enroll_wavs = torch.tensor(rng.uniform(-0.3, 0.3, (n_spk, length))
+                               .astype(np.float32), device="cuda")
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (batch, length)).astype(
+        np.float32), device="cuda")
+    no_dither = dataclasses.replace(IV_PLDA_MFCC, dither=0.0)
+
+    def build(fast, kernel, mfcc, threshold=None, enroll=None):
+        model = IvPlda(params, threshold=threshold, mfcc_config=mfcc,
+                       fast=fast, loglike_kernel=kernel)
+        if enroll is not None:
+            model.set_enrollment([f"spk{i}" for i in range(n_spk)], enroll)
+        return model
+
+    with torch.no_grad():
+        enroll = build(FastPath(enabled=False), False,
+                       no_dither).embedding(enroll_wavs)
+        clean = build(FastPath(enabled=False), False, no_dither,
+                      enroll=enroll).score(x)
+    clean_max = clean.max(dim=1).values
+    threshold = float(np.median(clean_max.cpu().numpy()))
+    labels = decide(clean, threshold)[0].long()
+    below = torch.where(clean_max <= threshold, threshold - clean_max,
+                        float("inf"))
+    est_waves = x[torch.argsort(below)[:2]]
+    torch.cuda.synchronize()
+    emit({"phase": "setup_fakebob", "seconds": time.perf_counter() - t0,
+          "threshold": threshold, "clean_max_scores": clean_max.tolist(),
+          "labels": labels.tolist()})
+    fields = {"model": "iv_plda", "C": 2048, "D": 72, "IV": 600, "R": 200}
+    atk_kw = dict(epsilon=0.002, max_iter=30, samples_per_draw=50,
+                  samples_per_draw_batch_size=50, max_lr=0.001,
+                  stop_early=False)
+    out = {}
+
+    # the exact path, dither 0
+    model = build(FastPath(enabled=False), False, no_dither, threshold,
+                  enroll)
+    est, bodies, draws, est_s, est_l, est_p = run_estimation(
+        torch, model, est_waves, wrappers, False)
+    est_expected = {k: 0 for k in wrappers}
+    est_expected["cholesky_rt"] = len(est_waves) + bodies
+    if est is None:
+        raise RuntimeError("slice_fakebob_osi: no usable estimation wave")
+    launches, rec = run_fakebob_slice(
+        torch, "slice_fakebob_osi", model, x, labels, wrappers, "OSI", est,
+        {**atk_kw, "fast": False},
+        lambda a: {"cholesky_rt": 1 + a.last_executed_iters},
+        {**fields, "loglike_kernel": False}, profile_dir)
+    rec["estimation"] = {"waves": len(est_waves), "estimate": est,
+                         "model_threshold": threshold, "nes_bodies": bodies,
+                         "noise_draws": draws, "seconds": est_s,
+                         "launches": est_l, "launches_expected": est_expected,
+                         "plain_calls": est_p}
+    emit(rec)
+    if est_l != est_expected or any(est_p.values()):
+        raise RuntimeError(f"slice_fakebob_osi estimation: launches {est_l} "
+                           f"(expected {est_expected}), plain {est_p}")
+    out["slice_fakebob_osi"] = launches
+    del model
+    torch.cuda.empty_cache()
+
+    # the fused stats and loglike kernels, the default dither
+    model = build(FastPath(gmm_topk=0, stats_kernel=True), True,
+                  IV_PLDA_MFCC, threshold, enroll)
+
+    def fast_counts(a):
+        exact = 1 + a.last_guard_evals + 1
+        return {"stats_fwd": a.last_executed_iters, "fused_loglike": exact,
+                "cholesky_rt": a.last_executed_iters + exact}
+
+    launches, rec = run_fakebob_slice(
+        torch, "slice_fakebob_osi_fast", model, x, labels, wrappers, "OSI",
+        est, {**atk_kw, "fast": True}, fast_counts,
+        {**fields, "loglike_kernel": True}, profile_dir)
+    est2, bodies, draws, est_s, est_l, est_p = run_estimation(
+        torch, model, est_waves, wrappers, True)
+    est_expected = {k: 0 for k in wrappers}
+    est_expected.update(fused_loglike=len(est_waves) + bodies,
+                        cholesky_rt=len(est_waves) + bodies)
+    rec["estimation"] = {"waves": len(est_waves), "estimate": est2,
+                         "estimate_exact_slice": est,
+                         "model_threshold": threshold, "nes_bodies": bodies,
+                         "noise_draws": draws, "seconds": est_s,
+                         "launches": est_l, "launches_expected": est_expected,
+                         "plain_calls": est_p}
+    emit(rec)
+    if est_l != est_expected or any(est_p.values()):
+        raise RuntimeError(f"slice_fakebob_osi_fast estimation: launches "
+                           f"{est_l} (expected {est_expected}), plain "
+                           f"{est_p}")
+    out["slice_fakebob_osi_fast"] = launches
+    del model, params, enroll, x, est_waves
+    torch.cuda.empty_cache()
+
+    # xv-PLDA, CSI, the JAX package's FAKEBOB batch
+    batch = 128
+    xparams = random_xv_plda_params(np.random.default_rng(0), device="cuda")
+    rng = np.random.default_rng(4)
+    enroll_wavs = torch.tensor(rng.uniform(-0.3, 0.3, (n_spk, length))
+                               .astype(np.float32), device="cuda")
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (batch, length)).astype(
+        np.float32), device="cuda")
+    with torch.no_grad():
+        enroll = XvPlda(xparams, fast=FastPath(enabled=False)).embedding(
+            enroll_wavs)
+    model = XvPlda(xparams, fast=FastPath())
+    model.set_enrollment([f"spk{i}" for i in range(n_spk)], enroll)
+    with torch.no_grad():
+        labels = model.make_decision(x)[0].long()
+    launches, rec = run_fakebob_slice(
+        torch, "slice_fakebob_xv", model, x, labels, wrappers, "CSI", None,
+        dict(epsilon=0.002, max_iter=5, samples_per_draw=50,
+             samples_per_draw_batch_size=17, max_lr=0.001, stop_early=False,
+             fast=True),
+        lambda a: {}, {"model": "xv_plda", "num_ceps": 30, "R": 150,
+                       "nes_chunks": [17, 17, 17]}, profile_dir)
+    emit(rec)
+    out["slice_fakebob_xv"] = launches
+    return out
+
+
 def bf16_ulp(torch, a):
     """The spacing of bf16 numbers at |a| (8 significant bits)."""
     a = a.abs().clamp(min=2.0 ** -126)
@@ -1712,6 +2112,9 @@ def main(argv):
     launches.update(phase_audionet_slices(torch, wrappers, profile_dir))
     torch.cuda.empty_cache()
     launches.update(phase_cw2_slices(torch, wrappers, profile_dir))
+    torch.cuda.empty_cache()
+    nes_recs = phase_nes_kernels(torch, chol)
+    launches.update(phase_fakebob_slices(torch, wrappers, profile_dir))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"
@@ -1760,6 +2163,12 @@ def main(argv):
         "library_bwd_product_ms"]
     bwd["launch_ms"] = {k: v["ms"] for k, v in bwd_launch_recs.items()
                         if "ms" in v}
+    for k in kernels:  # the NES shape of slice_fakebob_osi_fast
+        if k["name"] in nes_recs:
+            r = nes_recs[k["name"]]
+            k["nes_shape"] = {key: r[key] for key in (
+                "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by")}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

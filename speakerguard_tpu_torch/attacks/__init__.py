@@ -1,2 +1,3 @@
 from speakerguard_tpu_torch.attacks.gradient import FGSM, PGD, CWinf  # noqa: F401
 from speakerguard_tpu_torch.attacks.cw2 import CW2  # noqa: F401
+from speakerguard_tpu_torch.attacks.fakebob import FAKEBOB  # noqa: F401

@@ -1,11 +1,12 @@
-"""PGD-100 or CW2 on the port: the JAX package's bench.py for xv-PLDA (its
-default), iv-PLDA (its BENCH_MODEL=iv_plda) and AudioNet (BENCH_MODEL=
-audionet), with PGD or (BENCH_ATTACK=cw2) CW2.
+"""PGD-100, CW2 or FAKEBOB on the port: the JAX package's bench.py for
+xv-PLDA (its default), iv-PLDA (its BENCH_MODEL=iv_plda) and AudioNet
+(BENCH_MODEL=audionet), with PGD, (BENCH_ATTACK=cw2) CW2 or
+(BENCH_ATTACK=fakebob) FAKEBOB.
 
     python -m speakerguard_tpu_torch.bench [--model {xv_plda,iv_plda,audionet}]
-        [--attack {pgd,cw2}] [--batch 512] [--iters 100] [--cw2-iters 200]
-        [--cw2-bss 3] [--wav-len 48000] [--warmup 1] [--reps 3]
-        [--device cuda]
+        [--attack {pgd,cw2,fakebob}] [--batch 512] [--iters 100]
+        [--cw2-iters 200] [--cw2-bss 3] [--fb-iters 100] [--fb-samples 50]
+        [--wav-len 48000] [--warmup 1] [--reps 3] [--device cuda]
 
 The weights and inputs are drawn from numpy seed 0 in bench.py's order:
 xv-PLDA at full width with 10 enrolled speakers (CSI-E), iv-PLDA at full
@@ -16,6 +17,12 @@ loss on the model's default fast path (``FastPath()`` on the card, off on
 the CPU).  CW2 runs ``--cw2-bss`` binary-search steps of ``--cw2-iters``
 Adam steps (task CSI, early stop off, initial const 10) on the exact path;
 its metric counts cw2-iters x cw2-bss iterations, as bench.py's does.
+FAKEBOB runs ``--fb-iters`` NES iterations of ``--fb-samples`` antithetic
+samples each (task CSI, eps 0.002, max lr 0.001, early stop off, all the
+samples in one model batch, ``fast=True``); its metric counts fb-iters
+iterations, and ``executed_iters`` says how many NES bodies the last timed
+attack ran (fewer when every lane is found early), with
+``ms_per_executed_iter`` the mean time of one.
 After ``--warmup`` attacks, ``--reps`` attacks are timed on the host clock,
 each ending in a device synchronise.  Prints one JSON line in bench.py's
 shape: metric, value (utterances/s), unit, attack_success_rate_pct, batch,
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 
 from speakerguard_tpu_torch import resolve_device
-from speakerguard_tpu_torch.attacks import CW2, PGD
+from speakerguard_tpu_torch.attacks import CW2, FAKEBOB, PGD
 from speakerguard_tpu_torch.models.audionet import AudioNet, init_audionet
 from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
                                                    random_iv_plda_params)
@@ -43,11 +50,14 @@ def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", choices=("xv_plda", "iv_plda", "audionet"),
                    default="xv_plda")
-    p.add_argument("--attack", choices=("pgd", "cw2"), default="pgd")
+    p.add_argument("--attack", choices=("pgd", "cw2", "fakebob"),
+                   default="pgd")
     p.add_argument("--batch", type=int, default=512)
     p.add_argument("--iters", type=int, default=100)
     p.add_argument("--cw2-iters", type=int, default=200)
     p.add_argument("--cw2-bss", type=int, default=3)
+    p.add_argument("--fb-iters", type=int, default=100)
+    p.add_argument("--fb-samples", type=int, default=50)
     p.add_argument("--wav-len", type=int, default=48000)
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--reps", type=int, default=3)
@@ -80,6 +90,12 @@ def run(args) -> dict:
         atk = CW2(model, task="CSI", max_iter=args.cw2_iters,
                   binary_search_steps=args.cw2_bss, stop_early=False,
                   initial_const=10.0)
+    elif args.attack == "fakebob":
+        iters = args.fb_iters
+        atk = FAKEBOB(model, task="CSI", epsilon=0.002, max_iter=iters,
+                      samples_per_draw=args.fb_samples,
+                      samples_per_draw_batch_size=args.fb_samples,
+                      max_lr=0.001, stop_early=False)
     else:
         iters = args.iters
         atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
@@ -97,7 +113,7 @@ def run(args) -> dict:
         _, success = atk.attack(x, y, rng=i)
     sync()
     dt = (time.perf_counter() - t0) / args.reps
-    return {
+    rec = {
         "metric": f"{args.attack}{iters}_{args.model}_utts_per_sec",
         "value": args.batch / dt,
         "unit": "utterances/sec",
@@ -110,6 +126,10 @@ def run(args) -> dict:
         "fast_path": (None if model.fast_path is None
                       else vars(model.fast_path)),
     }
+    if args.attack == "fakebob":
+        rec["executed_iters"] = atk.last_executed_iters
+        rec["ms_per_executed_iter"] = dt * 1e3 / atk.last_executed_iters
+    return rec
 
 
 def main(argv=None) -> int:
