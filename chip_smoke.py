@@ -23,10 +23,13 @@ Phases, one JSON line each:
               (aug16, the loglike GEMM with its softmax partials,
               normalise-and-stats) and of stats_bwd's three (dl and the
               direct term, the daug GEMM, the chain rule and sum) against
-              its plain version at the main and ragged shapes, with its
-              CUDA-event time at the main shape.
+              its plain version at the main and ragged shapes and at
+              slice_defended_iv's 64 x 150 frames, with its CUDA-event time
+              at the main shape.
   4. kernel   each kernel against its plain PyTorch version on the card at
-              the main path's shapes and at ragged ones: error, CUDA-event
+              the main path's shapes and at ragged ones (the GMM kernels
+              also at slice_defended_iv's 64 x 150 frames, timed and
+              bounded there too): error, CUDA-event
               times of the kernel, the plain version and one PyTorch library
               call, and the roofline bound.  cholesky_rt on a diagonally
               dominant and an i-vector-shaped input (also the blocked
@@ -135,10 +138,34 @@ Phases, one JSON line each:
               evaluation points in 3 chunks of 17 (2176 waves each); every
               hand-kernel count 0.  Each FAKEBOB slice's success must equal
               an exact re-evaluation of the margin loss of its audio.
- 24. kernels  one line listing every ported kernel (fused_loglike,
+ 24. defense_small_reference  QT, BDR, MS (equal), AS, DS, LPF and BPF
+              (float32 convolutions) on the card against the CPU, each
+              timed at 512 x 3 s; FeCo's k-means (L2, cos) on the card
+              against the CPU from the same initial frames: the frames
+              assigned differently, and the rows that agree held to rtol
+              1e-4.
+ 25. slice_defended_iv  BASELINE.json config 5 on iv-PLDA: the weights
+              and waves of slice, QT("512")@0 + FeCo("kmeans 0.5 L2")@1
+              sequential (150 frames left) on FastPath(gmm_topk=0,
+              stats_kernel=True) with loglike_kernel=True (each GMM
+              kernel held to its plain version at 64 x 150 frames in
+              phases 3 and 4), the defended clean decisions as
+              labels, PGD-10 with EOT 2 (BPDA through QT): stats_fwd and
+              stats_bwd 20 (at 64 x 150 rows), fused_loglike 2,
+              cholesky_rt 22.  Success must equal an exact re-decision of
+              the returned audio with the final evaluation's FeCo draws.
+ 26. slice_defended_xv  xv-PLDA at batch 512 (the waves of slice_xv),
+              QT("512")@0 + FeCo("kmeans 0.2 L2")@1 on FastPath(), PGD-100
+              with EOT 2: every hand-kernel count 0.
+ 27. slice_defended_xv_avg  the same batch, order "average" over
+              QT("512"), BPF("50 5000"), DS("0.5") and MS("3") at flag 0,
+              PGD-10 with EOT 1: every count 0.
+ 28. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
               launches; stats_fwd and cholesky_rt with their NES-shape
-              case), with its launches on every slice.
+              case; fused_loglike, stats_fwd and stats_bwd with their
+              defended-shape case, 64 x 150 frames), with its launches on
+              every slice.
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -559,6 +586,16 @@ def gmm_bounds(b, t, d, c):
 
 
 GMM_SHAPES = [(64, 300, 72, 2048), (3, 37, 10, 200), (2, 130, 6, 64)]
+# slice_defended_iv's shape: FeCo at ratio 0.5 leaves 150 of the 300
+# frames, so the GMM kernels take 64 x 150 = 9,600 rows there
+DEFENDED_GMM_SHAPE = (64, 150, 72, 2048)
+
+
+def gmm_case(shape):
+    """The case name of a GMM kernel check at ``shape``."""
+    if shape == GMM_SHAPES[0]:
+        return "main"
+    return "defended" if shape == DEFENDED_GMM_SHAPE else "ragged"
 
 
 def gmm_inputs(torch, b, t, d, c):
@@ -596,7 +633,8 @@ def stats_fwd_check(x, got, want, pf):
 
 def phase_fused_loglike_launches(torch):
     """fused_loglike's two launches, each against its plain version on the
-    same inputs, at the main and ragged shapes.  Tolerances, with their
+    same inputs, at the main, ragged and defended (DEFENDED_GMM_SHAPE)
+    shapes.  Tolerances, with their
     reasons:
       aug_split    torch.equal: the same roundings (the f32 aug value formed
                    once, then its three bf16 pieces), pad columns zero;
@@ -609,8 +647,9 @@ def phase_fused_loglike_launches(torch):
     {launch: main-shape record}."""
     from speakerguard_tpu_torch.ops import gmm_loglike as L
     main = {}
-    for b, t, d, c in GMM_SHAPES + [(2, 45, 7, 101)]:
-        is_main = (b, t, d, c) == GMM_SHAPES[0]
+    for b, t, d, c in GMM_SHAPES + [(2, 45, 7, 101), DEFENDED_GMM_SHAPE]:
+        case = gmm_case((b, t, d, c))
+        is_main = case == "main"
         p, x, _, _ = gmm_inputs(torch, b, t, d, c)
         f = L.aug_dim(d)
         shape = {"B": b, "T": t, "D": d, "C": c, "N": b * t, "F": f,
@@ -657,7 +696,7 @@ def phase_fused_loglike_launches(torch):
             gemm["bf16_peak_share"] = gemm["tflops"] * 1e12 / BF16_FLOPS
         for name, rec in recs.items():
             rec = {"phase": "launch", "kernel": "fused_loglike",
-                   "launch": name, "case": "main" if is_main else "ragged",
+                   "launch": name, "case": case,
                    **shape, **rec}
             emit(rec)
             if not rec["ok"]:
@@ -669,7 +708,8 @@ def phase_fused_loglike_launches(torch):
 
 def phase_stats_fwd_launches(torch):
     """stats_fwd's three launches, each against its plain version on the
-    same inputs, at the main and ragged shapes.  Tolerances, with their
+    same inputs, at the main, ragged and defended (DEFENDED_GMM_SHAPE)
+    shapes.  Tolerances, with their
     reasons:
       aug16      torch.equal: the same roundings (x16, one rounding of the
                  exact f32 product x16 x16), pad columns zero;
@@ -688,8 +728,9 @@ def phase_stats_fwd_launches(torch):
     Returns {launch: main-shape record}."""
     from speakerguard_tpu_torch.ops import gmm_stats as S
     main = {}
-    for b, t, d, c in GMM_SHAPES:
-        is_main = (b, t, d, c) == GMM_SHAPES[0]
+    for b, t, d, c in GMM_SHAPES + [DEFENDED_GMM_SHAPE]:
+        case = gmm_case((b, t, d, c))
+        is_main = case == "main"
         p, x, _, _ = gmm_inputs(torch, b, t, d, c)
         proj16 = p.quad_proj.to(torch.bfloat16)
         f = d + d * (d + 1) // 2
@@ -758,7 +799,7 @@ def phase_stats_fwd_launches(torch):
             gemm["bf16_peak_share"] = gemm["tflops"] * 1e12 / BF16_FLOPS
         for name, rec in recs.items():
             rec = {"phase": "launch", "kernel": "stats_fwd", "launch": name,
-                   "case": "main" if is_main else "ragged", **shape, **rec}
+                   "case": case, **shape, **rec}
             emit(rec)
             if not rec["ok"]:
                 raise RuntimeError(f"stats_fwd {name} {shape}: {rec}")
@@ -769,13 +810,14 @@ def phase_stats_fwd_launches(torch):
 
 # stats_bwd's launches also at a C that is no multiple of 8: the posts16
 # loads go scalar and both TMA operands are zero-padded copies
-BWD_SHAPES = GMM_SHAPES + [(2, 45, 6, 100)]
+BWD_SHAPES = GMM_SHAPES + [(2, 45, 6, 100), DEFENDED_GMM_SHAPE]
 
 
 def phase_stats_bwd_launches(torch):
     """stats_bwd's three launches, each against its plain version on the
     same inputs (posts16 from stats_fwd, each launch fed the kernel output
-    of the one before), at BWD_SHAPES.  Tolerances, with their reasons:
+    of the one before), at BWD_SHAPES (main, ragged and defended).
+    Tolerances, with their reasons:
       dl      bf16(dl) within one bf16 ulp of the plain f32 dl (2^-7 of
               the value, or bf16's subnormal spacing 2^-133 where a tiny
               posterior makes dl subnormal), plus posts x 1e-5 of
@@ -786,7 +828,8 @@ def phase_stats_bwd_launches(torch):
               so where dp - sum_c posts dp cancels, f32 round-off moves dl
               by that much before its one rounding;
       direct  2e-6 of the largest sum of absolute terms (|posts16| |df16|):
-              exact products summed in another order;
+              exact products summed in another order; each side's error
+              against a float64 product is reported beside it;
       daug    2e-6 of the largest sum of absolute terms (|dl16| |proj16|^T),
               the loglike GEMM's bar;
       chain   1e-6 of the largest sum of absolute terms (chain_sum_plain of
@@ -796,7 +839,8 @@ def phase_stats_bwd_launches(torch):
     from speakerguard_tpu_torch.ops import gmm_stats as S
     main = {}
     for b, t, d, c in BWD_SHAPES:
-        is_main = (b, t, d, c) == GMM_SHAPES[0]
+        case = gmm_case((b, t, d, c))
+        is_main = case == "main"
         p, x, dz, df = gmm_inputs(torch, b, t, d, c)
         proj16 = p.quad_proj.to(torch.bfloat16)
         f = d + d * (d + 1) // 2
@@ -831,9 +875,14 @@ def phase_stats_bwd_launches(torch):
             recs["dl"]["ok"] &= recs["dl"]["pad_columns_zero"]
         terms = float((post16.float() @ S._bf(df).abs()).max())
         err = float((direct - direct_w).abs().max())
+        ref = (post16.double() @ S._bf(df).double()).reshape(-1, d)
         recs["direct"] = {"max_abs_err": err, "max_abs_terms": terms,
                           "tolerance": 2e-6 * terms,
+                          "max_abs_err_f64": float((direct - ref).abs().max()),
+                          "plain_max_abs_err_f64": float(
+                              (direct_w - ref).abs().max()),
                           "ok": err <= 2e-6 * terms}
+        del ref
 
         daug = S.daug_gemm(dl16, proj16)
         torch.cuda.synchronize()
@@ -877,7 +926,7 @@ def phase_stats_bwd_launches(torch):
                                     "out_dtype=torch.float32)")
         for name, rec in recs.items():
             rec = {"phase": "launch", "kernel": "stats_bwd", "launch": name,
-                   "case": "main" if is_main else "ragged", **shape, **rec}
+                   "case": case, **shape, **rec}
             emit(rec)
             if not rec["ok"]:
                 raise RuntimeError(f"stats_bwd {name} {shape}: {rec}")
@@ -888,9 +937,11 @@ def phase_stats_bwd_launches(torch):
 
 def phase_gmm_kernels(torch):
     """fused_loglike, stats_fwd and stats_bwd against their plain versions
-    at the main path's shape (64 x 300 frames, D=72, C=2048) and at ragged
-    ones (T not a multiple of the 64-frame tile, C not a multiple of the
-    64-component tile, small D).  Tolerances, with their reasons:
+    at the main path's shape (64 x 300 frames, D=72, C=2048), at
+    slice_defended_iv's (64 x 150 frames: 9,600 rows, T split over the
+    64-frame tile as 64 + 64 + 22) and at ragged ones (T not a multiple of
+    the 64-frame tile, C not a multiple of the 64-component tile, small
+    D), each at the same bars.  Tolerances, with their reasons:
       fused_loglike  2e-6 of max |loglike|: sums of 2700 exact products in
                      another order (six bf16 products of the three-piece
                      split, each stage's tensor-core partial sum added in
@@ -907,12 +958,15 @@ def phase_gmm_kernels(torch):
       stats_bwd      on stats_fwd's own posts16: 1e-5 of the gradient's
                      scale on all but 5% of entries, 2e-3 on the rest, where
                      bf16(dl) flips by one ulp (2^-7) at a rounding boundary.
-    Returns {name: main-shape record}."""
+    The main and defended cases are timed (kernel, plain, library) and
+    bounded.  Returns ({name: main-shape record}, {name: defended-shape
+    record})."""
     from speakerguard_tpu_torch.ops import gmm_loglike as L
     from speakerguard_tpu_torch.ops import gmm_stats as S
-    main = {}
-    for b, t, d, c in GMM_SHAPES:
-        is_main = (b, t, d, c) == GMM_SHAPES[0]
+    by_case = {"main": {}, "defended": {}}
+    for b, t, d, c in GMM_SHAPES + [DEFENDED_GMM_SHAPE]:
+        case = gmm_case((b, t, d, c))
+        timed = case in by_case
         p, x, dz, df = gmm_inputs(torch, b, t, d, c)
         proj16 = p.quad_proj.to(torch.bfloat16)
         bounds = gmm_bounds(b, t, d, c)
@@ -956,7 +1010,7 @@ def phase_gmm_kernels(torch):
                              "ok": share <= 0.05
                              and float(e.max()) <= 2e-3 * scale}
 
-        if is_main:
+        if timed:
             aug = L.augment_plain(x)
             aug16 = S._bf(x)
             rows, cols = L.packed_indices(d, x.device)
@@ -1008,14 +1062,14 @@ def phase_gmm_kernels(torch):
                 "torch.mm(bf16(dl), proj16.T, out_dtype=torch.float32)")
             del aug, aug16, aug16_pad, dl16
         for name, rec in recs.items():
-            rec = {"phase": "kernel", "kernel": name,
-                   "case": "main" if is_main else "ragged", **shape, **rec}
+            rec = {"phase": "kernel", "kernel": name, "case": case, **shape,
+                   **rec}
             emit(rec)
             if not rec["ok"]:
                 raise RuntimeError(f"{name} {shape}: {rec}")
-            if is_main:
-                main[name] = rec
-    return main
+            if timed:
+                by_case[case][name] = rec
+    return by_case["main"], by_case["defended"]
 
 
 def build_model(torch, params, fast, loglike_kernel, enroll,
@@ -1977,6 +2031,278 @@ def phase_xv_small_reference(torch):
         raise RuntimeError(f"card vs CPU xv scores differ by {err}")
 
 
+def phase_defense_small_reference(torch):
+    """Each deterministic defense of the defended slices on the card
+    against the same call on the CPU (8 waves of 3 s): QT, BDR and MS
+    equal (powers of two scale and quantise exactly; a median selects), AS,
+    DS, LPF and BPF (float32 convolutions, TF32 off) within rtol 1e-5 and
+    atol 2e-5 x max|x|; each also timed on the card at the slices' batch
+    (512 x 3 s).  Then k-means (FeCo's Lloyd loop, L2 and cos) on the
+    card against the CPU from the same initial frames on the xv MFCC of 16
+    waves: the frames whose final assignment differs are counted (a near
+    tie may flip one and the rest of its row follows), at least 3/4 of
+    the rows must agree in every frame, and on those rows the compressed
+    features hold to rtol 1e-4, atol 1e-5 x max|feat|."""
+    from speakerguard_tpu_torch.defenses import frequency_domain as FD
+    from speakerguard_tpu_torch.defenses import time_domain as TD
+    from speakerguard_tpu_torch.ops import kmeans as km
+    from speakerguard_tpu_torch.ops.kaldi_mfcc import XV_PLDA_MFCC, kaldi_mfcc
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-0.5, 0.5, (8, 48000)).astype(np.float32)
+    big = torch.tensor(rng.uniform(-0.5, 0.5, (512, 48000)).astype(
+        np.float32), device="cuda")
+    cases = [("QT", TD.QT, {"param": 512}, True),
+             ("BDR", TD.BDR, {"param": 8}, True),
+             ("MS", TD.MS, {"param": 3}, True),
+             ("AS", TD.AS, {"param": 3}, False),
+             ("DS", FD.DS, {"param": 0.5}, False),
+             ("LPF", FD.LPF, {}, False),
+             ("BPF", FD.BPF, {"param": (50.0, 5000.0)}, False)]
+    recs, bad = [], []
+    scale = float(np.abs(x).max())
+    for name, fn, kw, exact in cases:
+        want = fn(torch.tensor(x), **kw)
+        got = fn(torch.tensor(x, device="cuda"), **kw).cpu()
+        err = float((got - want).abs().max())
+        ok = (torch.equal(got, want) if exact else
+              bool(torch.allclose(got, want, rtol=1e-5, atol=2e-5 * scale)))
+        recs.append({"defense": name, "params": kw, "max_abs_err": err,
+                     "bar": "equal" if exact else
+                     "rtol 1e-5, atol 2e-5 x max|x|", "ok": ok,
+                     "ms_512x48000": cuda_ms(lambda: fn(big, **kw), 2, 5)})
+        if not ok:
+            bad.append(name)
+    feats = kaldi_mfcc(torch.tensor(rng.uniform(-0.3, 0.3, (16, 48000))
+                                    .astype(np.float32)) * 32768.0,
+                       XV_PLDA_MFCC)
+    b, t, _ = feats.shape
+    k = int(t * 0.2)
+    idx = km.initial_indices(b, t, k, torch.Generator().manual_seed(3))
+    big_feats = torch.randn((512, t, feats.shape[2]), device="cuda") * 5
+    big_idx = km.initial_indices(512, t, k, None, "cuda")
+    km_recs = []
+    for distance in ("L2", "cos"):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            f = feats.to(dev)
+            res[dev] = (km.kmeans_assign(f, idx.to(dev), 20, distance)
+                        .argmax(-1).cpu(),
+                        km.kmeans_compress_batch(f, 0.2, init_idx=idx.to(
+                            dev), distance=distance).cpu())
+        differ = res["cuda"][0] != res["cpu"][0]
+        rows = ~differ.any(dim=1)
+        got, want = res["cuda"][1][rows], res["cpu"][1][rows]
+        ok = bool(int(rows.sum()) * 4 >= 3 * b and torch.allclose(
+            got, want, rtol=1e-4, atol=1e-5 * float(feats.abs().max())))
+        km_recs.append({
+            "distance": distance, "shape": [b, t, int(feats.shape[2])],
+            "K": k, "frames_assigned_differently": int(differ.sum()),
+            "rows_agreeing": int(rows.sum()),
+            "max_abs_err_agreeing_rows": float((got - want).abs().max()),
+            "bar": "3/4 of the rows agree; rtol 1e-4, atol 1e-5 x "
+                   "max|feat| on them", "ok": ok,
+            "ms_512x300x30": cuda_ms(lambda: km.kmeans_compress_batch(
+                big_feats, 0.2, init_idx=big_idx, distance=distance), 2, 5)})
+        if not ok:
+            bad.append(f"kmeans_{distance}")
+    emit({"phase": "defense_small_reference", "defenses": recs,
+          "kmeans": km_recs})
+    if bad:
+        raise RuntimeError(f"card vs CPU defenses differ: {bad}")
+
+
+def run_defended_slice(torch, name, model, x, wrappers, expected, fields,
+                       profile_dir, iters, eot):
+    """make_decision on the defended ``model`` (its clean decisions are the
+    labels), then PGD-``iters`` (eps 0.002, step 0.0004, Entropy) with
+    ``eot`` EOT repeats, after a 1-iteration warm-up.  The counts are set
+    to 0 just before make_decision and read just after the attack;
+    ``expected`` maps names to launch counts, and every plain count must
+    stay 0.  Hard checks: finite scores and audio within eps, the score
+    shape, and the success vector equal to an exact re-decision of the
+    returned audio through the defended model with the draws of the
+    attack's final evaluation (its generator state replayed).  Returns
+    the launch counts."""
+    from speakerguard_tpu_torch.attacks import PGD
+    batch = x.shape[0]
+
+    def pgd(n):
+        return PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
+                   max_iter=n, loss="Entropy", EOT_size=eot)
+
+    t0 = time.perf_counter()
+    pgd(1).attack(x, torch.zeros(batch, dtype=torch.long, device="cuda"),
+                  rng=1)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    for w in wrappers.values():
+        w.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        decisions, scores = model.make_decision(x)
+    torch.cuda.synchronize()
+    decide_s = time.perf_counter() - t0
+    labels = decisions.long()
+    atk = pgd(iters)
+    states = recording_exact_scores(model, batch)
+    t0 = time.perf_counter()
+    adver, success = atk.attack(x, labels, rng=0)
+    torch.cuda.synchronize()
+    pgd_s = time.perf_counter() - t0
+    del model.score
+    launches = {k: w.launches for k, w in wrappers.items()}
+    plain = {k: w.plain_calls for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    gen = torch.Generator(device="cuda")
+    gen.set_state(states[-1])
+    with torch.no_grad():
+        redecided = (model.make_decision(adver, rng=gen)[0]
+                     != labels).tolist()
+    finite = bool(torch.isfinite(scores).all() and torch.isfinite(adver).all())
+    within = float((adver - x).abs().max()) <= 0.002 + 1e-6
+    fp = model.fast_path
+    rec = {"phase": name, **fields, "task": "CSI-E",
+           "speakers": model.num_spks, "batch": batch,
+           "samples": int(x.shape[1]), "attack": "PGD", "iterations": iters,
+           "eot": eot, "order": model.order,
+           "fast_path": None if fp is None else vars(fp),
+           "warmup_pgd1_s": warmup_s, "make_decision_s": decide_s,
+           "pgd_s": pgd_s, "pgd_ms_per_iter": pgd_s * 1e3 / iters,
+           "pgd_utts_per_s": batch / pgd_s,
+           "asr_pct": 100.0 * sum(success) / batch,
+           "clean_labels": {str(v): int((labels == v).sum())
+                            for v in labels.unique().tolist()},
+           "scores_shape": list(scores.shape), "finite": finite,
+           "within_eps": within, "peak_mem_gib": peak,
+           "exact_evaluations_recorded": len(states),
+           "matches_exact_redecision": redecided == success,
+           "success": [int(s) for s in success],
+           "launches": launches, "launches_expected": expected,
+           "plain_calls": plain}
+    emit(rec)
+    if not (finite and within and rec["matches_exact_redecision"]
+            and len(states) == 1
+            and list(scores.shape) == [batch, model.num_spks]):
+        raise RuntimeError(f"{name} output check failed")
+    wrong = {k: v for k, v in expected.items() if launches[k] != v}
+    if wrong or any(plain.values()):
+        raise RuntimeError(f"{name}: launches {launches} (expected "
+                           f"{expected}), plain calls {plain}")
+    if profile_dir:
+        profile_one_iteration(
+            torch, model, x, labels, profile_dir, name, pgd(1),
+            f"one PGD iteration ({eot} EOT repeats) plus the exact final "
+            "evaluation")
+    return launches
+
+
+def phase_defended_slices(torch, wrappers, profile_dir):
+    """BASELINE.json config 5: PGD with EOT (BPDA through QT) against the
+    defended model, task CSI-E, 10 speakers enrolled from clean waves, the
+    defended model's clean decisions as labels.
+      slice_defended_iv      iv-PLDA at full width (weights and waves of
+                             phase_slices), batch 64 x 3 s, base
+                             FastPath(gmm_topk=0, stats_kernel=True) and
+                             loglike_kernel=True, QT("512")@0 +
+                             FeCo("kmeans 0.5 L2")@1 (150 frames left, so
+                             the stats kernels run at 64 x 150 rows),
+                             PGD-10 with EOT 2: stats_fwd and stats_bwd
+                             once per repeat (20), fused_loglike once per
+                             exact evaluation (2: make_decision, the final
+                             one), cholesky_rt once per repeat and exact
+                             evaluation (22).
+      slice_defended_xv      xv-PLDA at full width (weights and waves of
+                             phase_xv_slices), batch 512 x 3 s, base
+                             FastPath(), QT("512")@0 + FeCo("kmeans 0.2
+                             L2")@1 (60 frames left), PGD-100 with EOT 2:
+                             every hand-kernel count 0 (none on xv).
+      slice_defended_xv_avg  the same xv batch, order "average" over
+                             QT("512"), BPF("50 5000"), DS("0.5") and
+                             MS("3"), all at flag 0 (four exact xv passes
+                             a score), PGD-10 with EOT 1: every count 0.
+    Returns {slice: launch counts}."""
+    from speakerguard_tpu_torch.defenses.registry import parser_defense
+    from speakerguard_tpu_torch.models.base import FastPath
+    from speakerguard_tpu_torch.models.defended import DefendedModel
+    from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
+                                                       random_iv_plda_params)
+    from speakerguard_tpu_torch.models.tdnn import TDNN_SPEC
+    from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
+                                                       random_xv_plda_params)
+    n_spk, length = 10, 48000
+    out = {}
+
+    def defended(base, names, params, flags, order="sequential"):
+        defense, canonical = parser_defense(names, params, flags, order)
+        return DefendedModel(base, defense, order), canonical
+
+    # iv-PLDA through the GMM kernels
+    t0 = time.perf_counter()
+    params = random_iv_plda_params(np.random.default_rng(0), 2048, 72, 600,
+                                   200, device="cuda")
+    rng = np.random.default_rng(1)
+    enroll_wavs = rng.uniform(-0.3, 0.3, (n_spk, length)).astype(np.float32)
+    with torch.no_grad():
+        enroll = IvPlda(params, fast=FastPath(enabled=False)).embedding(
+            torch.tensor(enroll_wavs, device="cuda"))
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (64, length)).astype(
+        np.float32), device="cuda")
+    base = IvPlda(params, fast=FastPath(gmm_topk=0, stats_kernel=True),
+                  loglike_kernel=True)
+    base.set_enrollment([f"spk{i}" for i in range(n_spk)], enroll)
+    model, canonical = defended(base, ["QT", "FeCo"],
+                                ["512", "kmeans 0.5 L2"], [0, 1])
+    torch.cuda.synchronize()
+    emit({"phase": "setup_defended_iv", "seconds": time.perf_counter() - t0})
+    iters, eot, exact_evals = 10, 2, 2
+    expected = {k: 0 for k in wrappers}
+    expected.update(stats_fwd=iters * eot, stats_bwd=iters * eot,
+                    fused_loglike=exact_evals,
+                    cholesky_rt=iters * eot + exact_evals)
+    out["slice_defended_iv"] = run_defended_slice(
+        torch, "slice_defended_iv", model, x, wrappers, expected,
+        {"model": "iv_plda", "C": 2048, "D": 72, "IV": 600, "R": 200,
+         "loglike_kernel": True, "defense": canonical, "frames": 300,
+         "frames_after_feco": 150}, profile_dir, iters, eot)
+    del model, base, params, enroll, x
+    torch.cuda.empty_cache()
+
+    # xv-PLDA at batch 512
+    t0 = time.perf_counter()
+    params = random_xv_plda_params(np.random.default_rng(0), device="cuda")
+    rng = np.random.default_rng(1)
+    enroll_wavs = rng.uniform(-0.3, 0.3, (n_spk, length)).astype(np.float32)
+    with torch.no_grad():
+        enroll = XvPlda(params, fast=FastPath(enabled=False)).embedding(
+            torch.tensor(enroll_wavs, device="cuda"))
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (512, length)).astype(
+        np.float32), device="cuda")
+    base = XvPlda(params, fast=FastPath())
+    base.set_enrollment([f"spk{i}" for i in range(n_spk)], enroll)
+    torch.cuda.synchronize()
+    emit({"phase": "setup_defended_xv", "seconds": time.perf_counter() - t0})
+    fields = {"model": "xv_plda", "tdnn_spec": TDNN_SPEC, "num_ceps": 30,
+              "emb_dim": 512, "R": 150, "frames": 300}
+    zero = {k: 0 for k in wrappers}
+    model, canonical = defended(base, ["QT", "FeCo"],
+                                ["512", "kmeans 0.2 L2"], [0, 1])
+    out["slice_defended_xv"] = run_defended_slice(
+        torch, "slice_defended_xv", model, x, wrappers, zero,
+        {**fields, "defense": canonical, "frames_after_feco": 60},
+        profile_dir, 100, 2)
+    torch.cuda.empty_cache()
+    model, canonical = defended(base, ["QT", "BPF", "DS", "MS"],
+                                ["512", "50 5000", "0.5", "3"], [0, 0, 0, 0],
+                                "average")
+    out["slice_defended_xv_avg"] = run_defended_slice(
+        torch, "slice_defended_xv_avg", model, x, wrappers, zero,
+        {**fields, "defense": canonical}, profile_dir, 10, 1)
+    return out
+
+
 def phase_rounds(torch, models, x, rounds, iters=10):
     """ms per PGD iteration of the given models, ``rounds`` times each, the
     order rotated every round so that no model always runs first."""
@@ -2088,8 +2414,9 @@ def main(argv):
     bwd_launch_recs = phase_stats_bwd_launches(torch)
     recs = {"cholesky_rt": phase_kernels(torch, chol),
             "cholesky_rt_dinv": phase_chol_dinv(torch, chol),
-            "chol_solve": phase_chol_solve(torch, chol),
-            **phase_gmm_kernels(torch)}
+            "chol_solve": phase_chol_solve(torch, chol)}
+    gmm_main, defended_recs = phase_gmm_kernels(torch)
+    recs.update(gmm_main)
     phase_small_reference(torch)
     phase_xv_blocks(torch)
     phase_xv_small_reference(torch)
@@ -2115,6 +2442,9 @@ def main(argv):
     torch.cuda.empty_cache()
     nes_recs = phase_nes_kernels(torch, chol)
     launches.update(phase_fakebob_slices(torch, wrappers, profile_dir))
+    torch.cuda.empty_cache()
+    phase_defense_small_reference(torch)
+    launches.update(phase_defended_slices(torch, wrappers, profile_dir))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"
@@ -2169,6 +2499,12 @@ def main(argv):
             k["nes_shape"] = {key: r[key] for key in (
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by")}
+    for k in kernels:  # slice_defended_iv's shape (64 x 150 frames)
+        if k["name"] in defended_recs:
+            r = defended_recs[k["name"]]
+            k["defended_shape"] = {key: r[key] for key in (
+                "case", "B", "T", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

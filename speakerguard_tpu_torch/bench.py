@@ -6,6 +6,8 @@ xv-PLDA (its default), iv-PLDA (its BENCH_MODEL=iv_plda) and AudioNet
     python -m speakerguard_tpu_torch.bench [--model {xv_plda,iv_plda,audionet}]
         [--attack {pgd,cw2,fakebob}] [--batch 512] [--iters 100]
         [--cw2-iters 200] [--cw2-bss 3] [--fb-iters 100] [--fb-samples 50]
+        [--defense QT,FeCo] [--defense-param '512|kmeans 0.2 L2']
+        [--defense-flag 0,1] [--eot 2]
         [--wav-len 48000] [--warmup 1] [--reps 3] [--device cuda]
 
 The weights and inputs are drawn from numpy seed 0 in bench.py's order:
@@ -23,6 +25,14 @@ samples in one model batch, ``fast=True``); its metric counts fb-iters
 iterations, and ``executed_iters`` says how many NES bodies the last timed
 attack ran (fewer when every lane is found early), with
 ``ms_per_executed_iter`` the mean time of one.
+``--defense`` (bench.py's BENCH_DEFENSE, comma-separated names) wraps the
+model in a sequential ``DefendedModel``: ``--defense-param`` gives each
+defense's parameters ('|'-separated; default: FeCo and FEATURE_COMPRESSION
+"kmeans 0.2 L2", the others their registry defaults), ``--defense-flag``
+its flag level (','-separated; default 1 for FeCo, 0 for the others).  PGD
+takes ``--eot`` EOT repeats (BENCH_EOT).  The metric then carries
+"_<names joined by '-'>" and, above one repeat, "_eot<N>":
+``pgd100_xv_plda_FeCo_eot2_utts_per_sec``.
 After ``--warmup`` attacks, ``--reps`` attacks are timed on the host clock,
 each ending in a device synchronise.  Prints one JSON line in bench.py's
 shape: metric, value (utterances/s), unit, attack_success_rate_pct, batch,
@@ -39,7 +49,9 @@ import torch
 
 from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.attacks import CW2, FAKEBOB, PGD
+from speakerguard_tpu_torch.defenses.registry import parser_defense
 from speakerguard_tpu_torch.models.audionet import AudioNet, init_audionet
+from speakerguard_tpu_torch.models.defended import DefendedModel
 from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
                                                    random_iv_plda_params)
 from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
@@ -58,12 +70,41 @@ def parse_args(argv):
     p.add_argument("--cw2-bss", type=int, default=3)
     p.add_argument("--fb-iters", type=int, default=100)
     p.add_argument("--fb-samples", type=int, default=50)
+    p.add_argument("--defense", default=None,
+                   help="comma-separated defenses, e.g. QT,FeCo")
+    p.add_argument("--defense-param", default=None,
+                   help="'|'-separated parameters, one per defense")
+    p.add_argument("--defense-flag", default=None,
+                   help="','-separated flag levels, one per defense")
+    p.add_argument("--eot", type=int, default=1)
     p.add_argument("--wav-len", type=int, default=48000)
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p.parse_args(argv)
+
+
+FEATURE_LEVEL = ("FeCo", "FEATURE_COMPRESSION")
+
+
+def defend(model, args):
+    """(model wrapped in the ``--defense`` defenses, the metric's tag)."""
+    tag = ""
+    if args.defense:
+        names = args.defense.split(",")
+        params = (args.defense_param.split("|") if args.defense_param else
+                  ["kmeans 0.2 L2" if n in FEATURE_LEVEL else None
+                   for n in names])
+        flags = ([int(f) for f in args.defense_flag.split(",")]
+                 if args.defense_flag else
+                 [1 if n in FEATURE_LEVEL else 0 for n in names])
+        defense, _ = parser_defense(names, params, flags, "sequential")
+        model = DefendedModel(model, defense=defense, order="sequential")
+        tag = "_" + "-".join(names)
+    if args.eot > 1:
+        tag += f"_eot{args.eot}"
+    return model, tag
 
 
 def run(args) -> dict:
@@ -81,6 +122,7 @@ def run(args) -> dict:
         model.set_enrollment([str(i) for i in range(10)],
                              rng.standard_normal((10, 150)).astype(
                                  np.float32))
+    model, tag = defend(model, args)
     x = torch.tensor(rng.uniform(-0.3, 0.3, (args.batch, args.wav_len))
                      .astype(np.float32), device=dev)
     y = torch.tensor(rng.integers(0, 10, args.batch), device=dev)
@@ -99,7 +141,7 @@ def run(args) -> dict:
     else:
         iters = args.iters
         atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
-                  max_iter=iters, loss="Entropy")
+                  max_iter=iters, loss="Entropy", EOT_size=args.eot)
 
     def sync():
         if dev.type == "cuda":
@@ -114,13 +156,14 @@ def run(args) -> dict:
     sync()
     dt = (time.perf_counter() - t0) / args.reps
     rec = {
-        "metric": f"{args.attack}{iters}_{args.model}_utts_per_sec",
+        "metric": f"{args.attack}{iters}_{args.model}{tag}_utts_per_sec",
         "value": args.batch / dt,
         "unit": "utterances/sec",
         "attack_success_rate_pct": 100.0 * sum(success) / len(success),
         "batch": args.batch,
         "wav_len": args.wav_len,
         "ms_per_iter": dt * 1e3 / iters,
+        "defense": args.defense, "eot": args.eot,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "fast_path": (None if model.fast_path is None

@@ -18,7 +18,8 @@
 //
 //  1  dl_direct_kernel   a block per (utterance, 64 frames) sweeps C twice
 //                        in 64-component chunks.  Sweep 1: the direct term
-//                        posts16 . df16 on the tensor cores (WMMA bf16, f32
+//                        posts16 . df16 on the tensor cores (WMMA bf16, each
+//                        chunk summed from zero and added in f32 to
 //                        accumulators held across the sweep, D padded to a
 //                        multiple of 16) and pz = sum_c posts dz; then each
 //                        row's sum_c posts dp = pz + x16 . direct (the same
@@ -94,8 +95,9 @@ __device__ __forceinline__ void load4(const bf16* p, float (&pv)[4]) {
   for (int e = 0; e < 4; ++e) pv[e] = __bfloat162float(pb[e]);
 }
 
-// Three blocks an SM (80 registers a thread, a 32-byte spill) timed faster
-// at the main shape than two (128 registers, no spill) on an H100 SXM.
+// Three blocks an SM: 80 registers a thread, a 64-byte spill at D = 72.
+// Two (128 registers, no spill) timed slower at the main shape on an H100
+// SXM, measured with the direct term summed in one accumulator chain.
 template <bool VEC, int NF>
 __global__ void __launch_bounds__(DL_THREADS, 3)
 dl_direct_kernel(const float* __restrict__ x, const bf16* __restrict__ posts16,
@@ -198,19 +200,28 @@ dl_direct_kernel(const float* __restrict__ x, const bf16* __restrict__ posts16,
     stage();
     __syncthreads();
     fetch((ch + 1) % n_chunks * DL_CHUNK);  // the last fetches sweep 2's first
+    // the chunk's 64 products summed on the tensor cores from zero, then
+    // added in f32 to the running sum: one tensor-core accumulator chain
+    // over all of C drifted past 2e-6 of the absolute terms
 #pragma unroll
-    for (int kk = 0; kk < DL_CHUNK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, ps + rb * 16 * DL_PLD + kk * 16, DL_PLD);
+    for (int j = 0; j < NB; ++j) {
+      const int cb = warp % 2 + 2 * j;
+      if (cb < NF) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> cacc;
+        wmma::fill_fragment(cacc, 0.f);
 #pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const int cb = warp % 2 + 2 * j;
-        if (cb < NF) {
+        for (int kk = 0; kk < DL_CHUNK / 16; ++kk) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+              fa;
+          wmma::load_matrix_sync(fa, ps + rb * 16 * DL_PLD + kk * 16,
+                                 DL_PLD);
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
               fb;
           wmma::load_matrix_sync(fb, dfs + kk * 16 * XLD + cb * 16, XLD);
-          wmma::mma_sync(dacc[j], fa, fb, dacc[j]);
+          wmma::mma_sync(cacc, fa, fb, cacc);
         }
+#pragma unroll
+        for (int e = 0; e < cacc.num_elements; ++e) dacc[j].x[e] += cacc.x[e];
       }
     }
     float part = 0.f;

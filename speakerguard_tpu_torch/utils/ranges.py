@@ -15,6 +15,7 @@ so the decision never syncs the device with the host.
 import torch
 
 BITS = 16
+ABS_MAX = float(2 ** (BITS - 1))  # 32768.0
 
 
 def check_input_range(x: torch.Tensor, range_type: str = "scale",

@@ -30,7 +30,8 @@ def _forbidden(name):
 @pytest.mark.parametrize(
     "path", PORT_FILES + [ROOT / "chip_smoke.py",
                           ROOT / "tools" / "torch_pgd_rounds.py",
-                          ROOT / "tools" / "chol_sweep_phases.py"],
+                          ROOT / "tools" / "chol_sweep_phases.py",
+                          ROOT / "tools" / "stats_bwd_launches.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
@@ -46,6 +47,11 @@ SLICE_MODULES = [
     "ops/gmm_loglike.py", "ops/gmm_stats.py", "ops/_build.py",
     "models/tdnn.py", "models/xv_plda.py", "bench.py",
     "ops/logmel.py", "models/audionet.py", "attacks/cw2.py",
+    "adaptive/nes.py", "attacks/fakebob.py",
+    "utils/ranges.py", "adaptive/bpda.py", "defenses/time_domain.py",
+    "ops/resample.py", "ops/iir.py", "defenses/frequency_domain.py",
+    "ops/kmeans.py", "defenses/feature_level.py", "defenses/registry.py",
+    "models/defended.py",
 ]
 
 
