@@ -15,8 +15,9 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi); exits non-zero
               when torch sees no CUDA card.
   2. build    nvcc builds the port's kernel sources, csrc/chol.cu,
-              csrc/gmm.cu, csrc/gmm_stats_fwd.cu and csrc/gmm_stats_bwd.cu,
-              one process each, side by side, into csrc/_build/.
+              csrc/gmm.cu, csrc/gmm_stats_fwd.cu, csrc/gmm_stats_bwd.cu and
+              csrc/adpcm.cu, one process each, side by side, into
+              csrc/_build/.
   3. launch   each of fused_loglike's two launches (the three-piece bf16
               split of aug(x), the six-product split GEMM; the projection's
               split between them is plain torch), of stats_fwd's three
@@ -25,7 +26,9 @@ Phases, one JSON line each:
               direct term, the daug GEMM, the chain rule and sum) against
               its plain version at the main and ragged shapes and at
               slice_defended_iv's 64 x 150 frames, with its CUDA-event time
-              at the main shape.
+              at the main shape; fused_loglike's also at slice_siren_iv's
+              guard shape (16 x 300 frames), stats_fwd's also at its
+              particle shape (400 x 300 frames), timed there too.
   4. kernel   each kernel against its plain PyTorch version on the card at
               the main path's shapes and at ragged ones (the GMM kernels
               also at slice_defended_iv's 64 x 150 frames, timed and
@@ -160,12 +163,50 @@ Phases, one JSON line each:
  27. slice_defended_xv_avg  the same batch, order "average" over
               QT("512"), BPF("50 5000"), DS("0.5") and MS("3") at flag 0,
               PGD-10 with EOT 1: every count 0.
- 28. kernels  one line listing every ported kernel (fused_loglike,
+ 28. codec_small_reference  MULAW at 512 x 3 s card vs CPU (rtol 1e-6,
+              atol 1e-6 x max; a level may flip only at a near tie); the
+              ADPCM kernel torch.equal to its plain loop on the card at
+              512 x 4,800 samples and on the CPU on 8 x 48,000, its ms at
+              512 x 48,000 beside the plain loop's and its bounds (bytes;
+              the serial chain, adpcm_bound_ms); OPUS and SPEEX at 8 x 3 s
+              through a stand-in ffmpeg written to a temporary directory
+              and put first on PATH for this phase only (output equal to
+              its quantisation, BPDA gradient equal to the incoming one),
+              and the real codecs where the machine has an ffmpeg.
+ 29. kernel (case siren)  stats_fwd at 400 x 300 frames, cholesky_rt at
+              B = 400 (f32 and bf16_updates), fused_loglike at 16 x 300
+              frames: slice_siren_iv's shapes, at the main-shape bars,
+              timed and bounded.
+ 30. slice_defended_adpcm_xv  xv-PLDA, FastPath(), ADPCM 4 @0, PGD-10 with
+              EOT 1 at 512 x 3 s: adpcm 12 (once per forward), every other
+              count 0; success equal to an exact re-decision.
+ 31. slice_kenan_ssa_xv  xv-PLDA, Kenan ssa, 15 steps at 4 x 3 s (window
+              2400): every count 0; the SVD's ms per wave and driver, the
+              full reconstruction within 1e-4 of max |x|, the top 100
+              squared singular values within rtol 1e-3 of the float64
+              eigenvalues of the Gram matrix; success equal to an exact
+              re-decision.
+ 32. slice_siren_xv  xv-PLDA, FastPath(), SirenAttack(fast=True), batch
+              32, 25 particles, 2 epochs x 30 iterations, abort off (800
+              waves an evaluation): every count 0.
+ 33. slice_kenan_fft_iv  iv-PLDA, FastPath(enabled=False),
+              loglike_kernel=True, dither 0, Kenan fft 15 steps at batch 64:
+              fused_loglike and cholesky_rt 16 (one per decision).
+ 34. slice_siren_iv  iv-PLDA, FastPath(gmm_topk=0, stats_kernel=True),
+              loglike_kernel=True, SirenAttack(fast=True), batch 16, 25
+              particles, 2 epochs x 30 iterations, abort off: stats_fwd =
+              particle evaluations (120,000 rows each), fused_loglike =
+              guard forwards + 2, cholesky_rt their sum, stats_bwd 0.  Each
+              Siren slice's success must equal an exact re-evaluation of
+              its audio (the final re-scoring's dither replayed).
+ 35. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
               launches; stats_fwd and cholesky_rt with their NES-shape
               case; fused_loglike, stats_fwd and stats_bwd with their
-              defended-shape case, 64 x 150 frames), with its launches on
-              every slice.
+              defended-shape case, 64 x 150 frames; fused_loglike,
+              stats_fwd and cholesky_rt with their siren-shape case), with
+              its launches on every slice, and the port's own kernel
+              adpcm (no Pallas counterpart).
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -589,12 +630,20 @@ GMM_SHAPES = [(64, 300, 72, 2048), (3, 37, 10, 200), (2, 130, 6, 64)]
 # slice_defended_iv's shape: FeCo at ratio 0.5 leaves 150 of the 300
 # frames, so the GMM kernels take 64 x 150 = 9,600 rows there
 DEFENDED_GMM_SHAPE = (64, 150, 72, 2048)
+# slice_siren_iv's shapes: 16 utterances x 25 particles = 400 waves of 300
+# frames a particle evaluation (stats_fwd at 120,000 rows, cholesky_rt at
+# B = 400), 16 x 300 = 4,800 rows on the exact guard and the final
+# re-evaluation (fused_loglike)
+SIREN_STATS_SHAPE = (400, 300, 72, 2048)
+SIREN_GUARD_SHAPE = (16, 300, 72, 2048)
 
 
 def gmm_case(shape):
     """The case name of a GMM kernel check at ``shape``."""
     if shape == GMM_SHAPES[0]:
         return "main"
+    if shape in (SIREN_STATS_SHAPE, SIREN_GUARD_SHAPE):
+        return "siren"
     return "defended" if shape == DEFENDED_GMM_SHAPE else "ragged"
 
 
@@ -633,8 +682,8 @@ def stats_fwd_check(x, got, want, pf):
 
 def phase_fused_loglike_launches(torch):
     """fused_loglike's two launches, each against its plain version on the
-    same inputs, at the main, ragged and defended (DEFENDED_GMM_SHAPE)
-    shapes.  Tolerances, with their
+    same inputs, at the main, ragged, defended (DEFENDED_GMM_SHAPE) and
+    Siren guard (SIREN_GUARD_SHAPE) shapes.  Tolerances, with their
     reasons:
       aug_split    torch.equal: the same roundings (the f32 aug value formed
                    once, then its three bf16 pieces), pad columns zero;
@@ -647,7 +696,8 @@ def phase_fused_loglike_launches(torch):
     {launch: main-shape record}."""
     from speakerguard_tpu_torch.ops import gmm_loglike as L
     main = {}
-    for b, t, d, c in GMM_SHAPES + [(2, 45, 7, 101), DEFENDED_GMM_SHAPE]:
+    for b, t, d, c in GMM_SHAPES + [(2, 45, 7, 101), DEFENDED_GMM_SHAPE,
+                                    SIREN_GUARD_SHAPE]:
         case = gmm_case((b, t, d, c))
         is_main = case == "main"
         p, x, _, _ = gmm_inputs(torch, b, t, d, c)
@@ -708,9 +758,9 @@ def phase_fused_loglike_launches(torch):
 
 def phase_stats_fwd_launches(torch):
     """stats_fwd's three launches, each against its plain version on the
-    same inputs, at the main, ragged and defended (DEFENDED_GMM_SHAPE)
-    shapes.  Tolerances, with their
-    reasons:
+    same inputs, at the main, ragged, defended (DEFENDED_GMM_SHAPE) and
+    Siren particle (SIREN_STATS_SHAPE, 120,000 rows, timed too) shapes.
+    Tolerances, with their reasons:
       aug16      torch.equal: the same roundings (x16, one rounding of the
                  exact f32 product x16 x16), pad columns zero;
       loglike    2e-6 of max (|aug16| |projK|^T + |gconsts|), the largest
@@ -725,12 +775,12 @@ def phase_stats_fwd_launches(torch):
                  exp(gconsts - max) per pad column;
       normalise  on the plain loglike and partials, at stats_fwd's
                  tolerances (phase_gmm_kernels).
-    Returns {launch: main-shape record}."""
+    Returns ({launch: main-shape record}, {launch: Siren-shape record})."""
     from speakerguard_tpu_torch.ops import gmm_stats as S
-    main = {}
-    for b, t, d, c in GMM_SHAPES + [DEFENDED_GMM_SHAPE]:
+    by_case = {"main": {}, "siren": {}}
+    for b, t, d, c in GMM_SHAPES + [DEFENDED_GMM_SHAPE, SIREN_STATS_SHAPE]:
         case = gmm_case((b, t, d, c))
-        is_main = case == "main"
+        timed = case in by_case
         p, x, _, _ = gmm_inputs(torch, b, t, d, c)
         proj16 = p.quad_proj.to(torch.bfloat16)
         f = d + d * (d + 1) // 2
@@ -782,7 +832,7 @@ def phase_stats_fwd_launches(torch):
             x, got, S.normalise_stats_plain(ll_w, part_w, x),
             (torch.exp(ll_w - m_w) / s_w).reshape(b, t, c))
 
-        if is_main:
+        if timed:
             n = b * t
             timing = {
                 "aug16": lambda: S.augment16_padded(x),
@@ -803,9 +853,9 @@ def phase_stats_fwd_launches(torch):
             emit(rec)
             if not rec["ok"]:
                 raise RuntimeError(f"stats_fwd {name} {shape}: {rec}")
-            if is_main:
-                main[name] = rec
-    return main
+            if timed:
+                by_case[case][name] = rec
+    return by_case["main"], by_case["siren"]
 
 
 # stats_bwd's launches also at a C that is no multiple of 8: the posts16
@@ -2303,6 +2353,651 @@ def phase_defended_slices(torch, wrappers, profile_dir):
     return out
 
 
+def phase_siren_kernels(torch, chol):
+    """stats_fwd, cholesky_rt and fused_loglike at the shapes that
+    slice_siren_iv gives them: a particle evaluation of 16 utterances x 25
+    particles = 400 waves, 120,000 frames (stats_fwd), 400 matrices of
+    600 x 600 (cholesky_rt, f32 and bf16_updates); the guard and the final
+    re-evaluation on the 16 utterances, 4,800 frames (fused_loglike).
+    Each against its plain version at the bars of its main-shape row, with
+    CUDA-event ms of the kernel, the plain version and one library call,
+    and the bound.  Returns {kernel: record of the f32 case}."""
+    from speakerguard_tpu_torch.ops import gmm_loglike as L
+    from speakerguard_tpu_torch.ops import gmm_stats as S
+    out = {}
+    b, t, d, c = SIREN_STATS_SHAPE
+    p, x, _, _ = gmm_inputs(torch, b, t, d, c)
+    proj16 = p.quad_proj.to(torch.bfloat16)
+    got = S.stats_fwd(x, proj16, p.gconsts)
+    torch.cuda.synchronize()
+    rec = stats_fwd_check(x, got, S.stats_fwd_plain(x, proj16, p.gconsts),
+                          S.posteriors_plain(x, proj16, p.gconsts))
+    del got
+    aug16 = S.augment16_padded_plain(x)
+    projk = S.proj_kmajor(proj16)
+    g16 = p.gconsts.to(torch.bfloat16)
+    rec = {"phase": "kernel", "kernel": "stats_fwd", "case": "siren",
+           "B": b, "T": t, "D": d, "C": c, "rows": b * t,
+           "max_abs_err": max(rec["zeroth_max_abs_err"],
+                              rec["first_max_abs_err"]), **rec,
+           "ms": cuda_ms(lambda: S.stats_fwd(x, proj16, p.gconsts), 2, 10),
+           "plain_ms": cuda_ms(
+               lambda: S.stats_fwd_plain(x, proj16, p.gconsts), 1, 2),
+           "library_ms": cuda_ms(
+               lambda: torch.addmm(g16, aug16, projk.T), 2, 10),
+           "library_call": "torch.addmm(gconsts, aug16 padded to 2752 "
+                           "columns, projK^T) (no single PyTorch call "
+                           "computes the fused function)"}
+    rec["bound_ms"], rec["bound_by"] = gmm_bounds(b, t, d, c)["stats_fwd"]
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"stats_fwd at the Siren shape: {rec}")
+    out["stats_fwd"] = rec
+    del p, x, proj16, aug16, projk
+    torch.cuda.empty_cache()
+
+    n, tol = 600, 1e-5
+    a = spd_batch(torch, "dominant", b, n, seed=n, dtype=torch.float32)
+    for upd in (False, True):
+        got = chol.cholesky_rt(a, bf16_updates=upd)
+        torch.cuda.synchronize()
+        want = chol.cholesky_rt_plain(a, bf16_updates=upd)
+        abs_err = float((got - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        lower_zero = bool(torch.all(torch.tril(got, -1) == 0))
+        resid = chol.blocked_residual(a, got, upd)
+        rec = {"phase": "kernel", "kernel": "cholesky_rt",
+               "case": "siren_bf16_updates" if upd else "siren_f32",
+               "input": "dominant", "shape": [b, n, n], "bf16_updates": upd,
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "tolerance_vs_plain": tol, "blocked_residual": resid,
+               "tolerance_residual": tol, "strictly_lower_zero": lower_zero,
+               "ms": cuda_ms(lambda: chol.cholesky_rt(a, upd), 3, 20),
+               "plain_ms": cuda_ms(lambda: chol.cholesky_rt_plain(a, upd),
+                                   1, 2),
+               "library_ms": cuda_ms(
+                   lambda: torch.linalg.cholesky(a, upper=True), 3, 20)}
+        rec["bound_ms"], rec["bound_by"] = chol_bound_ms(b, n, 4, upd,
+                                                         chol.NB)
+        emit(rec)
+        del got, want
+        if not (lower_zero and resid <= tol and rel_err <= tol):
+            raise RuntimeError(f"cholesky_rt at the Siren shape: {rec}")
+        out.setdefault("cholesky_rt", rec)
+    del a
+    torch.cuda.empty_cache()
+
+    b, t, d, c = SIREN_GUARD_SHAPE
+    p, x, _, _ = gmm_inputs(torch, b, t, d, c)
+    got = L.fused_loglike(x, p.quad_proj, p.gconsts)
+    torch.cuda.synchronize()
+    want = L.fused_loglike_plain(x, p.quad_proj, p.gconsts)
+    aug = L.augment_plain(x)
+    ref = aug.double() @ p.quad_proj.double() + p.gconsts.double()
+    err = float((got - want).abs().max())
+    err64 = float((got.double() - ref).abs().max())
+    plain64 = float((want.double() - ref).abs().max())
+    aug = aug.reshape(-1, aug.shape[-1])
+    rec = {"phase": "kernel", "kernel": "fused_loglike", "case": "siren",
+           "B": b, "T": t, "D": d, "C": c, "rows": b * t,
+           "max_abs_err": err, "max_abs_loglike": float(want.abs().max()),
+           "tolerance": 2e-6 * float(want.abs().max()),
+           "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain64,
+           "tolerance_f64": "2 x the plain f32 product's",
+           "ms": cuda_ms(lambda: L.fused_loglike(x, p.quad_proj, p.gconsts),
+                         3, 20),
+           "plain_ms": cuda_ms(
+               lambda: L.fused_loglike_plain(x, p.quad_proj, p.gconsts),
+               1, 3),
+           "library_ms": cuda_ms(
+               lambda: torch.addmm(p.gconsts, aug, p.quad_proj), 3, 20),
+           "library_call": "torch.addmm(gconsts, aug, quad_proj) on a "
+                           "pre-built f32 aug"}
+    rec["ok"] = err <= rec["tolerance"] and err64 <= 2.0 * plain64
+    rec["bound_ms"], rec["bound_by"] = gmm_bounds(b, t, d, c)[
+        "fused_loglike"]
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"fused_loglike at the Siren guard shape: {rec}")
+    out["fused_loglike"] = rec
+    return out
+
+
+# A deterministic stand-in for ffmpeg, the script of
+# tests/test_speech_compression.py: it quantises to 512-step levels, and on
+# decode prepends and appends junk samples per codec, so the realignment
+# (start hints, the min-L1 search) has work
+STAND_IN_FFMPEG = r'''#!{python}
+"""Deterministic stand-in for ffmpeg: quantizes to 512-step levels, and on
+decode prepends/appends junk samples per "codec" so the caller's
+realignment logic has real work to do."""
+import sys
+import numpy as np
+from scipy.io import wavfile
+
+args = sys.argv[1:]
+src = args[args.index("-i") + 1]
+dst = args[-1]
+decode = "pcm_s16le" in args
+
+rate, data = wavfile.read(src)
+data = data.astype(np.int64)
+if decode:
+    ext = src.rsplit(".", 1)[-1]
+    pre = {{"opus": 69, "spx": 37, "mp3": 0, "aac": 11, "amr": 5}}[ext]
+    junk_l = np.full(pre, 30000, np.int64)
+    junk_r = np.full(13, -30000, np.int64)
+    data = np.concatenate([junk_l, data, junk_r])
+else:
+    data = (data // 512) * 512
+wavfile.write(dst, rate, np.clip(data, -32768, 32767).astype(np.int16))
+'''
+
+# each real codec's encoder, as ffmpeg -encoders lists it (the JAX
+# package's tests/test_speech_compression.py _REAL_CODECS)
+REAL_CODECS = [("OPUS", 16000, "libopus"), ("SPEEX", 16000, "libspeex"),
+               ("AMR", 6600, "libvo_amrwbenc"), ("AAC_V", 3, "libfdk_aac"),
+               ("AAC_C", 16000, "libfdk_aac"), ("MP3_V", 5, "mp3"),
+               ("MP3_C", 16000, "mp3")]
+
+
+def adpcm_bound_ms(b, length, bits, clock_mhz):
+    """(bytes ms, operations ms, serial-chain ms) of the ADPCM round-trip.
+    Bytes: each sample read once and written once, f32.  Operations: 6 +
+    5 (bits - 1) f32 operations a sample (the difference, its sign and
+    magnitude, the clamps and adds of the update; a compare, a select and
+    three adds per tap) at the f32 rate.  The chain: sample t needs the
+    predictor and step index of sample t - 1, so a wave is L dependent
+    steps, and a step's dependent chain is at least two shared-memory
+    table reads (the step from the index, the index adjustment from the
+    code; ~30 cycles each on Hopper) and about 4 + 2 (bits - 1) + 6
+    dependent ALU operations (~4 cycles each: the difference, a compare
+    and a select per tap, the code's clamp and conversion, the index add
+    and clamp), at the card's highest SM clock.  A latency model, not a
+    measurement."""
+    byte_ms = b * length * 4 * 2 / HBM_BYTES_PER_S * 1e3
+    op_ms = b * length * (6 + 5 * (bits - 1)) / F32_FLOPS * 1e3
+    cycles = 2 * 30 + 4 * (4 + 2 * (bits - 1) + 6)
+    return byte_ms, op_ms, length * cycles / (clock_mhz * 1e6) * 1e3
+
+
+def phase_codec_small_reference(torch, clock_mhz):
+    """The speech codecs on the card.
+      MULAW   512 x 3 s on the card against the CPU: within rtol 1e-6 and
+              atol 1e-6 x max |out| (log1p and pow differ by an ulp between
+              the two libraries, and 256 ** |q| - 1 cancels for the levels
+              next to 0); a quantised level may flip only at a near tie,
+              where the companded value lies within 1e-4 of a half level
+              (counted).
+      ADPCM   the kernel torch.equal to adpcm_plain on the card at
+              512 x 4,800 samples, and to the CPU plain loop on 8 full 3 s
+              waves; the kernel's ms at 512 x 4,800 and 512 x 48,000, the
+              plain version's on the card at both, the bounds of
+              adpcm_bound_ms.
+      host    OPUS (start hint) and SPEEX (min-L1 search) at 8 x 3 s
+              through the stand-in ffmpeg, first on PATH for this phase
+              only: the output equal to the stand-in's quantisation, the
+              BPDA input gradient equal to the incoming gradient, ms a
+              call.  Where the machine has an ffmpeg of its own, each real
+              codec whose encoder ``ffmpeg -encoders`` lists also runs on
+              a speech-like 3 s wave (shape kept, finite).
+    Returns the ADPCM record."""
+    import shutil
+    import tempfile
+    from speakerguard_tpu_torch.defenses import speech_compression as SC
+    from speakerguard_tpu_torch.ops import adpcm as A
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.uniform(-0.6, 0.6, (512, 48000)).astype(np.float32))
+    xc = x.to("cuda")
+
+    # MULAW
+    got = SC.MULAW(xc, 255).cpu()
+    want = SC.MULAW(x, 255)
+    scale = float(want.abs().max())
+    close = torch.isclose(got, want, rtol=1e-6, atol=1e-6 * scale)
+    mu = 255.0
+    x64 = x.double().clamp(-1, 1)
+    level = ((torch.sign(x64) * torch.log1p(mu * x64.abs()) / np.log1p(mu)
+              + 1.0) * 0.5 * mu)
+    near_tie = (level - torch.floor(level) - 0.5).abs() < 1e-4
+    flips = ~close
+    mulaw = {"codec": "MULAW", "shape": list(x.shape),
+             "max_abs_err": float((got - want).abs().max()),
+             "bar": "rtol 1e-6, atol 1e-6 x max|out|; a level may flip "
+                    "only at a near tie",
+             "samples_outside_bar": int(flips.sum()),
+             "outside_bar_at_near_ties": int((flips & near_tie).sum()),
+             "ms": cuda_ms(lambda: SC.MULAW(xc, 255), 2, 10)}
+    mulaw["ok"] = bool(not (flips & ~near_tie).any())
+    del got, want, x64, level, near_tie, flips, close
+
+    # ADPCM: the kernel against the plain loop
+    x16 = torch.clamp(xc * 32768.0, -32768.0, 32767.0)
+    short = x16[:, :4800].contiguous()
+    k_short = A.adpcm(short, 4)
+    torch.cuda.synchronize()
+    p_short = A.adpcm_plain(short, 4)
+    k_full = A.adpcm(x16, 4)
+    cpu_full = A.adpcm_plain(x16[:8].cpu(), 4)
+    torch.cuda.synchronize()
+    byte_ms, op_ms, chain_ms = adpcm_bound_ms(512, 48000, 4, clock_mhz)
+    t0 = time.perf_counter()
+    A.adpcm_plain(x16, 4)
+    torch.cuda.synchronize()
+    plain_full_ms = (time.perf_counter() - t0) * 1e3
+    adpcm = {"codec": "ADPCM", "bits": 4, "shape": list(x.shape),
+             "equal_to_plain_card_512x4800": bool(torch.equal(k_short,
+                                                              p_short)),
+             "equal_to_plain_cpu_8x48000": bool(torch.equal(
+                 k_full[:8].cpu(), cpu_full)),
+             "max_abs_err": max(float((k_short - p_short).abs().max()),
+                                float((k_full[:8].cpu()
+                                       - cpu_full).abs().max())),
+             "ms": cuda_ms(lambda: A.adpcm(x16, 4), 2, 10),
+             "ms_512x4800": cuda_ms(lambda: A.adpcm(short, 4), 2, 10),
+             "plain_ms": plain_full_ms,
+             "plain_ms_512x4800": cuda_ms(lambda: A.adpcm_plain(short, 4),
+                                          0, 1),
+             "defense_ms": cuda_ms(lambda: SC.ADPCM(xc, 4), 2, 10),
+             "bound_bytes_ms": byte_ms, "bound_ops_ms": op_ms,
+             "bound_chain_ms": chain_ms, "sm_clock_max_mhz": clock_mhz,
+             "binds": ("serial chain" if chain_ms > max(byte_ms, op_ms)
+                       else "bytes" if byte_ms >= op_ms else "operations")}
+    adpcm["ok"] = (adpcm["equal_to_plain_card_512x4800"]
+                   and adpcm["equal_to_plain_cpu_8x48000"])
+    del x16, short, k_short, p_short, k_full, cpu_full
+
+    # the host codecs through the stand-in ffmpeg
+    real = shutil.which("ffmpeg")
+    tmp = tempfile.mkdtemp(prefix="stand-in-ffmpeg-")
+    path = os.environ.get("PATH", "")
+    host = []
+    try:
+        script = os.path.join(tmp, "ffmpeg")
+        with open(script, "w") as f:
+            f.write(STAND_IN_FFMPEG.format(python=sys.executable))
+        os.chmod(script, 0o755)
+        os.environ["PATH"] = tmp + os.pathsep + path
+        xs = xc[:8]
+        x16 = np.clip(xs.cpu().numpy() * 32768.0, -32768, 32767).astype(
+            np.int16)
+        expected = torch.tensor(((x16.astype(np.int64) // 512) * 512)
+                                .astype(np.float32) / 32768.0)
+        g = torch.randn(xs.shape, generator=torch.Generator(
+            device="cuda").manual_seed(5), device="cuda")
+        for name, param in (("OPUS", 16000), ("SPEEX", 43200)):
+            fn = getattr(SC, name)
+            xx = xs.clone().requires_grad_(True)
+            t0 = time.perf_counter()
+            y = fn(xx, param)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+            (y * g).sum().backward()
+            rec = {"codec": name, "param": param, "shape": list(y.shape),
+                   "ffmpeg": "stand-in",
+                   "equal_to_expected": bool(torch.equal(y.detach().cpu(),
+                                                         expected)),
+                   "gradient_equal_to_incoming": bool(torch.equal(xx.grad,
+                                                                  g)),
+                   "device": str(y.device), "ms": call_ms}
+            rec["ok"] = (rec["equal_to_expected"]
+                         and rec["gradient_equal_to_incoming"]
+                         and y.device.type == "cuda")
+            host.append(rec)
+    finally:
+        os.environ["PATH"] = path
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    real_rec = {"ffmpeg": real}
+    if real:
+        encoders = subprocess.run([real, "-hide_banner", "-encoders"],
+                                  capture_output=True, text=True).stdout
+        t = np.arange(48000) / 16000.0
+        speech = torch.tensor((0.4 * np.sin(2 * np.pi * 220 * t)
+                               * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)))
+                              .astype(np.float32)[None], device="cuda")
+        ran, skipped = [], []
+        for name, param, encoder in REAL_CODECS:
+            if encoder not in encoders:
+                skipped.append(name)
+                continue
+            try:
+                y = getattr(SC, name)(speech, param)
+            except Exception as exc:  # noqa: BLE001 - the encoder refused
+                skipped.append(f"{name}: {str(exc)[:80]}")
+                continue
+            if y.shape != speech.shape or not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"real ffmpeg {name}: {tuple(y.shape)}")
+            ran.append(name)
+        real_rec.update(ran=ran, skipped=skipped)
+    emit({"phase": "codec_small_reference", "mulaw": mulaw, "adpcm": adpcm,
+          "host": host, "real_ffmpeg": real_rec})
+    bad = [r["codec"] for r in [mulaw, adpcm, *host] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"codec checks failed: {bad}")
+    return adpcm
+
+
+def run_kenan_slice(torch, name, model, x, wrappers, expected_fn, fields,
+                    atk_kw, warmup=True):
+    """make_decision (its decisions are the labels), then Kenan(``atk_kw``),
+    after a warm-up of one step unless ``warmup`` is False.  The counts are
+    set to 0 just before make_decision and read just after the attack;
+    ``expected_fn(atk)`` gives the expected counts, and every plain count
+    must stay 0.  Hard checks: finite audio, the score shape, and the
+    success vector equal to an exact re-decision of the returned audio
+    (the model has no dither).  Returns (launch counts, record)."""
+    from speakerguard_tpu_torch.attacks import Kenan
+    batch = x.shape[0]
+    t0 = time.perf_counter()
+    if warmup:
+        Kenan(model, **{**atk_kw, "max_iter": 1}).attack(
+            x, torch.zeros(batch, dtype=torch.long, device="cuda"), rng=1)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    for w in wrappers.values():
+        w.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        decisions, scores = model.make_decision(x)
+    labels = decisions.long()
+    atk = Kenan(model, **atk_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adver, success = atk.attack(x, labels, rng=0)
+    torch.cuda.synchronize()
+    attack_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    plain = {k: w.plain_calls for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        redecided = (model.make_decision(adver)[0] != labels).tolist()
+    expected = {k: 0 for k in wrappers}
+    expected.update(expected_fn(atk))
+    finite = bool(torch.isfinite(scores).all() and torch.isfinite(adver).all())
+    rec = {"phase": name, **fields, "task": "CSI-E",
+           "speakers": model.num_spks, "batch": batch,
+           "samples": int(x.shape[1]), "attack": "Kenan", **atk_kw,
+           "warmup_1_step_s": warmup_s if warmup else None,
+           "attack_s": attack_s, "executed_steps": atk.last_executed_steps,
+           "ms_per_step": attack_s * 1e3 / atk.last_executed_steps,
+           "utts_per_s": batch / attack_s,
+           "asr_pct": 100.0 * sum(success) / batch, "peak_mem_gib": peak,
+           "scores_shape": list(scores.shape), "finite": finite,
+           "matches_exact_redecision": redecided == success,
+           "success": [int(v) for v in success],
+           "redecided": [int(v) for v in redecided],
+           "launches": launches, "launches_expected": expected,
+           "plain_calls": plain}
+    if not (finite and rec["matches_exact_redecision"]
+            and list(scores.shape) == [batch, model.num_spks]):
+        emit(rec)
+        raise RuntimeError(f"{name} output check failed")
+    wrong = {k: v for k, v in expected.items() if launches[k] != v}
+    if wrong or any(plain.values()):
+        emit(rec)
+        raise RuntimeError(f"{name}: launches {launches} (expected "
+                           f"{expected}), plain calls {plain}")
+    return launches, rec
+
+
+def ssa_checks(torch, wav_i, window, driver):
+    """The device SSA of ``wav_i`` (B, N) int16-valued waves: the SVD's ms
+    per wave (one call for the batch), the full reconstruction (keep =
+    window) against the input at 1e-4 of max |x|, and the top 100 squared
+    singular values of each wave against the float64 eigenvalues of its
+    window x window Gram matrix at rtol 1e-3."""
+    from speakerguard_tpu_torch.ops import ssa as ssa_mod
+    b, _ = wav_i.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pc, s, v = ssa_mod.ssa_device(wav_i, window, driver)
+    torch.cuda.synchronize()
+    svd_ms = (time.perf_counter() - t0) * 1e3 / b
+    rec_full = ssa_mod.inv_ssa_masked(pc, v, torch.full(
+        (b,), window, device="cuda"))
+    full_err = float(((rec_full - wav_i).abs().amax(dim=1)
+                      / wav_i.abs().amax(dim=1)).max())
+    del pc, v, rec_full
+    eig_err = 0.0
+    for i in range(b):
+        traj = ssa_mod.trajectory(wav_i[i:i + 1].double(), window)[0]
+        eig = torch.linalg.eigvalsh(traj @ traj.mT).flip(0)[:100]
+        s2 = s[i, :100].double() ** 2
+        eig_err = max(eig_err, float(((s2 - eig).abs() / eig).max()))
+        del traj
+    rec = {"driver": driver or "default", "svd_ms_per_wave": svd_ms,
+           "full_reconstruction_err_over_max": full_err,
+           "full_reconstruction_bar": 1e-4,
+           "top100_sv2_vs_f64_eig_max_rel_err": eig_err,
+           "sv2_bar_rel": 1e-3}
+    rec["ok"] = full_err <= 1e-4 and eig_err <= 1e-3
+    return rec
+
+
+def run_siren_slice(torch, name, model, x, wrappers, expected_fn, fields,
+                    atk_kw):
+    """make_decision (its decisions are the labels), then
+    SirenAttack(``atk_kw``) after a warm-up of one epoch of one iteration.
+    The counts are set to 0 just before make_decision and read just after
+    the attack; ``expected_fn(atk)`` gives the expected counts from the
+    particle evaluations and guard forwards the attack reports, and every
+    plain count must stay 0.  Hard checks: finite audio within eps, the
+    score shape, and the success vector equal to the margin loss (< 0) of
+    an exact re-evaluation of the returned audio, with the dither draw of
+    the attack's own re-evaluation replayed.  Returns (launch counts,
+    record)."""
+    from speakerguard_tpu_torch.attacks import SirenAttack
+    from speakerguard_tpu_torch.attacks.losses import margin_loss
+    batch = x.shape[0]
+    t0 = time.perf_counter()
+    SirenAttack(model, **{**atk_kw, "max_epoch": 1, "max_iter": 1}).attack(
+        x, torch.zeros(batch, dtype=torch.long, device="cuda"), rng=1)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    for w in wrappers.values():
+        w.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        decisions, scores = model.make_decision(x)
+    labels = decisions.long()
+    atk = SirenAttack(model, **atk_kw)
+    states = recording_exact_scores(model, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adver, success = atk.attack(x, labels, rng=0)
+    torch.cuda.synchronize()
+    attack_s = time.perf_counter() - t0
+    del model.score
+    launches = {k: w.launches for k, w in wrappers.items()}
+    plain = {k: w.plain_calls for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        gen = None
+        if states:
+            gen = torch.Generator(device="cuda")
+            gen.set_state(states[-1])
+        loss = margin_loss(model.score(adver, rng=gen), labels, task="CSI",
+                           clip_max=False)
+    expected = {k: 0 for k in wrappers}
+    expected.update(expected_fn(atk))
+    evals = atk.last_particle_evals
+    finite = bool(torch.isfinite(scores).all() and torch.isfinite(adver).all())
+    within = float((adver - x).abs().max()) <= atk.epsilon + 1e-6
+    fp = model.fast_path
+    rec = {"phase": name, **fields, "task": "CSI-E",
+           "speakers": model.num_spks, "batch": batch,
+           "samples": int(x.shape[1]), "attack": "SirenAttack", **atk_kw,
+           "fast_path": None if fp is None else vars(fp),
+           "waves_per_evaluation": batch * atk.n_particles,
+           "warmup_1_iter_s": warmup_s, "attack_s": attack_s,
+           "executed_epochs": atk.last_executed_epochs,
+           "particle_evals": evals, "guard_evals": atk.last_guard_evals,
+           "ms_per_particle_eval": attack_s * 1e3 / max(evals, 1),
+           "utts_per_s": batch / attack_s,
+           "asr_pct": 100.0 * sum(success) / batch, "peak_mem_gib": peak,
+           "scores_shape": list(scores.shape), "finite": finite,
+           "within_eps": within,
+           "matches_exact_reevaluation": (loss < 0).tolist() == success,
+           "reevaluation_dither_replayed": bool(states),
+           "success": [int(v) for v in success],
+           "launches": launches, "launches_expected": expected,
+           "plain_calls": plain}
+    if not (finite and within and rec["matches_exact_reevaluation"]
+            and list(scores.shape) == [batch, model.num_spks]):
+        emit(rec)
+        raise RuntimeError(f"{name} output check failed")
+    wrong = {k: v for k, v in expected.items() if launches[k] != v}
+    if wrong or any(plain.values()):
+        emit(rec)
+        raise RuntimeError(f"{name}: launches {launches} (expected "
+                           f"{expected}), plain calls {plain}")
+    return launches, rec
+
+
+def phase_slice15(torch, wrappers):
+    """The attacks and the codec of this slice at full width, weights from
+    numpy seed 0, 10 speakers enrolled from waves, task CSI-E, 3 s waves,
+    the clean decisions as labels.
+      slice_defended_adpcm_xv  xv-PLDA, FastPath(), ADPCM 4 @0 (BPDA,
+                               straight-through), PGD-10 with EOT 1 at
+                               batch 512: adpcm once per forward (12: the
+                               iterations, make_decision, the final
+                               evaluation), every other count 0.
+      slice_kenan_ssa_xv       xv-PLDA, FastPath(), dither 0, Kenan ssa 15
+                               steps at batch 4 (window 2400; the SVD's
+                               driver ops/ssa.py's SVD_DRIVER): every count
+                               0; the SVD's checks and ms (ssa_checks).
+      slice_siren_xv           xv-PLDA, FastPath(), batch 32, 25 particles,
+                               2 epochs x 30 iterations, abort off (800
+                               waves an evaluation): every count 0.
+      slice_kenan_fft_iv       iv-PLDA, FastPath(enabled=False),
+                               loglike_kernel=True, dither 0, Kenan fft 15
+                               steps at batch 64: fused_loglike and
+                               cholesky_rt once per decision (16).
+      slice_siren_iv           iv-PLDA, FastPath(gmm_topk=0,
+                               stats_kernel=True), loglike_kernel=True, the
+                               default dither, SirenAttack(fast=True), batch
+                               16, 25 particles, 2 epochs x 30 iterations,
+                               abort off: stats_fwd once per particle
+                               evaluation (at 120,000 rows), fused_loglike
+                               once per guard forward + 2, cholesky_rt
+                               their sum, stats_bwd 0.
+    Returns {slice: launch counts}."""
+    import dataclasses
+    from speakerguard_tpu_torch.defenses.registry import parser_defense
+    from speakerguard_tpu_torch.models.base import FastPath
+    from speakerguard_tpu_torch.models.defended import DefendedModel
+    from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
+                                                       random_iv_plda_params)
+    from speakerguard_tpu_torch.models.tdnn import TDNN_SPEC
+    from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
+                                                       random_xv_plda_params)
+    from speakerguard_tpu_torch.ops.kaldi_mfcc import (IV_PLDA_MFCC,
+                                                       XV_PLDA_MFCC)
+    from speakerguard_tpu_torch.ops.ssa import SVD_DRIVER
+    n_spk, length = 10, 48000
+    spk = [f"spk{i}" for i in range(n_spk)]
+    out = {}
+
+    # xv-PLDA: ADPCM before the model, Kenan ssa, Siren
+    t0 = time.perf_counter()
+    xparams = random_xv_plda_params(np.random.default_rng(0), device="cuda")
+    rng = np.random.default_rng(1)
+    enroll_wavs = rng.uniform(-0.3, 0.3, (n_spk, length)).astype(np.float32)
+    with torch.no_grad():
+        enroll = XvPlda(xparams, fast=FastPath(enabled=False)).embedding(
+            torch.tensor(enroll_wavs, device="cuda"))
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (512, length)).astype(
+        np.float32), device="cuda")
+    base = XvPlda(xparams, fast=FastPath())
+    base.set_enrollment(spk, enroll)
+    torch.cuda.synchronize()
+    emit({"phase": "setup_slice15_xv", "seconds": time.perf_counter() - t0})
+    xfields = {"model": "xv_plda", "tdnn_spec": TDNN_SPEC, "num_ceps": 30,
+               "emb_dim": 512, "R": 150}
+    defense, canonical = parser_defense(["ADPCM"], ["4"], [0], "sequential")
+    model = DefendedModel(base, defense, "sequential")
+    iters = 10
+    expected = {k: 0 for k in wrappers}
+    expected["adpcm"] = iters + 2
+    out["slice_defended_adpcm_xv"] = run_defended_slice(
+        torch, "slice_defended_adpcm_xv", model, x, wrappers, expected,
+        {**xfields, "defense": canonical}, None, iters, 1)
+    del model
+    torch.cuda.empty_cache()
+
+    # the decisions of Kenan and of the re-decision without dither; the xv
+    # weights are warm: no warm-up attack (it would pay the SVDs again)
+    model = XvPlda(xparams, fast=FastPath(), mfcc_config=dataclasses.replace(
+        XV_PLDA_MFCC, dither=0.0))
+    model.set_enrollment(spk, enroll)
+    out["slice_kenan_ssa_xv"], rec = run_kenan_slice(
+        torch, "slice_kenan_ssa_xv", model, x[:4], wrappers, lambda a: {},
+        {**xfields, "window": 2400, "dither": 0.0, "svd_driver": SVD_DRIVER},
+        dict(atk_name="ssa", max_iter=15), warmup=False)
+    wav_i = torch.trunc(x[:4] * 32768.0)  # the attack's int16 truncation
+    rec["ssa"] = ssa_checks(torch, wav_i, 2400, SVD_DRIVER)
+    emit(rec)
+    if not rec["ssa"]["ok"]:
+        raise RuntimeError(f"slice_kenan_ssa_xv SSA checks: {rec['ssa']}")
+    del wav_i, model
+    torch.cuda.empty_cache()
+
+    siren = dict(epsilon=0.002, max_epoch=2, max_iter=30, n_particles=25,
+                 abort_early=False, fast=True)
+    out["slice_siren_xv"], rec = run_siren_slice(
+        torch, "slice_siren_xv", base, x[:32], wrappers, lambda a: {},
+        xfields, siren)
+    emit(rec)
+    del base, xparams, enroll, x
+    torch.cuda.empty_cache()
+
+    # iv-PLDA: Kenan fft on the exact path, Siren on the GMM kernels
+    t0 = time.perf_counter()
+    params = random_iv_plda_params(np.random.default_rng(0), 2048, 72, 600,
+                                   200, device="cuda")
+    rng = np.random.default_rng(1)
+    enroll_wavs = rng.uniform(-0.3, 0.3, (n_spk, length)).astype(np.float32)
+    no_dither = dataclasses.replace(IV_PLDA_MFCC, dither=0.0)
+    with torch.no_grad():
+        enroll = IvPlda(params, fast=FastPath(enabled=False),
+                        mfcc_config=no_dither).embedding(
+            torch.tensor(enroll_wavs, device="cuda"))
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (64, length)).astype(
+        np.float32), device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "setup_slice15_iv", "seconds": time.perf_counter() - t0})
+    ifields = {"model": "iv_plda", "C": 2048, "D": 72, "IV": 600, "R": 200,
+               "loglike_kernel": True}
+    model = IvPlda(params, fast=FastPath(enabled=False), loglike_kernel=True,
+                   mfcc_config=no_dither)
+    model.set_enrollment(spk, enroll)
+    decisions = 1 + 15
+    out["slice_kenan_fft_iv"], rec = run_kenan_slice(
+        torch, "slice_kenan_fft_iv", model, x, wrappers,
+        lambda a: {"fused_loglike": decisions, "cholesky_rt": decisions},
+        {**ifields, "dither": 0.0}, dict(atk_name="fft", max_iter=15))
+    emit(rec)
+
+    model = IvPlda(params, fast=FastPath(gmm_topk=0, stats_kernel=True),
+                   loglike_kernel=True)
+    model.set_enrollment(spk, enroll)
+
+    def siren_counts(a):
+        exact = a.last_guard_evals + 2  # make_decision, the re-evaluation
+        return {"stats_fwd": a.last_particle_evals, "fused_loglike": exact,
+                "cholesky_rt": a.last_particle_evals + exact}
+
+    out["slice_siren_iv"], rec = run_siren_slice(
+        torch, "slice_siren_iv", model, x[:16], wrappers, siren_counts,
+        {**ifields, "dither": IV_PLDA_MFCC.dither}, siren)
+    emit(rec)
+    return out
+
+
 def phase_rounds(torch, models, x, rounds, iters=10):
     """ms per PGD iteration of the given models, ``rounds`` times each, the
     order rotated every round so that no model always runs first."""
@@ -2382,7 +3077,7 @@ def main(argv):
     try:
         import speakerguard_tpu_torch  # noqa: F401  (TF32 off)
         from speakerguard_tpu_torch.ops import _build, chol
-        from speakerguard_tpu_torch.ops import gmm_loglike, gmm_stats
+        from speakerguard_tpu_torch.ops import adpcm, gmm_loglike, gmm_stats
     except ImportError as exc:
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({exc})", file=sys.stderr)
@@ -2399,8 +3094,13 @@ def main(argv):
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
     t0 = time.perf_counter()
-    sources = ("chol", "gmm", "gmm_stats_fwd", "gmm_stats_bwd")
+    sources = ("chol", "gmm", "gmm_stats_fwd", "gmm_stats_bwd", "adpcm")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -2410,7 +3110,7 @@ def main(argv):
                     for src, log in logs.items()}})
 
     loglike_launch_recs = phase_fused_loglike_launches(torch)
-    launch_recs = phase_stats_fwd_launches(torch)
+    launch_recs, siren_launch_recs = phase_stats_fwd_launches(torch)
     bwd_launch_recs = phase_stats_bwd_launches(torch)
     recs = {"cholesky_rt": phase_kernels(torch, chol),
             "cholesky_rt_dinv": phase_chol_dinv(torch, chol),
@@ -2425,7 +3125,8 @@ def main(argv):
                 "chol_solve": chol.chol_solve,
                 "fused_loglike": gmm_loglike.fused_loglike,
                 "stats_fwd": gmm_stats.stats_fwd,
-                "stats_bwd": gmm_stats.stats_bwd}
+                "stats_bwd": gmm_stats.stats_bwd,
+                "adpcm": adpcm.adpcm}
     launches, models, x = phase_slices(torch, wrappers, profile_dir)
     if "--rounds" in argv:
         phase_rounds(torch, {n: models[n] for n in (
@@ -2445,6 +3146,10 @@ def main(argv):
     torch.cuda.empty_cache()
     phase_defense_small_reference(torch)
     launches.update(phase_defended_slices(torch, wrappers, profile_dir))
+    torch.cuda.empty_cache()
+    adpcm_rec = phase_codec_small_reference(torch, clock_mhz)
+    siren_recs = phase_siren_kernels(torch, chol)
+    launches.update(phase_slice15(torch, wrappers))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"
@@ -2505,6 +3210,32 @@ def main(argv):
             k["defended_shape"] = {key: r[key] for key in (
                 "case", "B", "T", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")}
+    for k in kernels:  # slice_siren_iv's shapes
+        if k["name"] in siren_recs:
+            r = siren_recs[k["name"]]
+            k["siren_shape"] = {key: r[key] for key in (
+                "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+            k["siren_shape"]["launches"] = launches["slice_siren_iv"][
+                k["name"]]
+    fwd["siren_shape"]["launch_ms"] = {
+        k: v["ms"] for k, v in siren_launch_recs.items() if "ms" in v}
+    # the port's own kernel: no Pallas kernel stands behind it
+    ad_bound, ad_by = _bound(adpcm_rec["bound_bytes_ms"],
+                             adpcm_rec["bound_ops_ms"])
+    kernels.append({
+        "name": "adpcm", "route": "cuda",
+        "source": "speakerguard_tpu_torch/csrc/adpcm.cu",
+        "replaces": "speakerguard_tpu/defenses/speech_compression.py:200 "
+                    "(a lax.scan; no Pallas kernel)",
+        "pallas_counterpart": None,
+        "launches": launches["slice_defended_adpcm_xv"]["adpcm"],
+        "launches_by_path": {p: v["adpcm"] for p, v in launches.items()},
+        "max_abs_err": adpcm_rec["max_abs_err"], "ms": adpcm_rec["ms"],
+        "plain_ms": adpcm_rec["plain_ms"], "bound_ms": ad_bound,
+        "bound_by": ad_by, "library_ms": None,
+        "bound_chain_ms": adpcm_rec["bound_chain_ms"],
+        "binds": adpcm_rec["binds"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,11 +1,14 @@
-"""PGD-100, CW2 or FAKEBOB on the port: the JAX package's bench.py for
-xv-PLDA (its default), iv-PLDA (its BENCH_MODEL=iv_plda) and AudioNet
-(BENCH_MODEL=audionet), with PGD, (BENCH_ATTACK=cw2) CW2 or
-(BENCH_ATTACK=fakebob) FAKEBOB.
+"""PGD-100, CW2, FAKEBOB, SirenAttack or Kenan ssa on the port: the JAX
+package's bench.py for xv-PLDA (its default), iv-PLDA (its
+BENCH_MODEL=iv_plda) and AudioNet (BENCH_MODEL=audionet), with PGD,
+(BENCH_ATTACK=cw2) CW2, (BENCH_ATTACK=fakebob) FAKEBOB, (BENCH_ATTACK=siren)
+SirenAttack or (BENCH_ATTACK=kenan_ssa) Kenan ssa.
 
     python -m speakerguard_tpu_torch.bench [--model {xv_plda,iv_plda,audionet}]
-        [--attack {pgd,cw2,fakebob}] [--batch 512] [--iters 100]
-        [--cw2-iters 200] [--cw2-bss 3] [--fb-iters 100] [--fb-samples 50]
+        [--attack {pgd,cw2,fakebob,siren,kenan_ssa}] [--batch 512]
+        [--iters 100] [--cw2-iters 200] [--cw2-bss 3] [--fb-iters 100]
+        [--fb-samples 50] [--siren-epochs 10] [--siren-iters 30]
+        [--siren-particles 25] [--kenan-iters 15]
         [--defense QT,FeCo] [--defense-param '512|kmeans 0.2 L2']
         [--defense-flag 0,1] [--eot 2]
         [--wav-len 48000] [--warmup 1] [--reps 3] [--device cuda]
@@ -25,6 +28,15 @@ samples in one model batch, ``fast=True``); its metric counts fb-iters
 iterations, and ``executed_iters`` says how many NES bodies the last timed
 attack ran (fewer when every lane is found early), with
 ``ms_per_executed_iter`` the mean time of one.
+SirenAttack runs ``--siren-epochs`` epochs of ``--siren-iters`` PSO
+iterations over ``--siren-particles`` particles (task CSI, eps 0.002, abort
+off, ``fast=True``); its metric counts epochs x iterations, as bench.py's
+does, and ``executed_epochs`` says how many epochs ran (fewer when every
+lane is found).  Its batch defaults to bench.py's 32 on xv-PLDA and 16 on
+the others.  Kenan ssa runs ``--kenan-iters`` binary-search steps (early
+stop off) on 8,000-sample waves by default (bench.py's BENCH_WAV_LEN=8000
+for this attack: the SVD grows with the window squared) at batch 16;
+``executed_steps`` says how many steps ran.
 ``--defense`` (bench.py's BENCH_DEFENSE, comma-separated names) wraps the
 model in a sequential ``DefendedModel``: ``--defense-param`` gives each
 defense's parameters ('|'-separated; default: FeCo and FEATURE_COMPRESSION
@@ -48,7 +60,8 @@ import numpy as np
 import torch
 
 from speakerguard_tpu_torch import resolve_device
-from speakerguard_tpu_torch.attacks import CW2, FAKEBOB, PGD
+from speakerguard_tpu_torch.attacks import (CW2, FAKEBOB, PGD, Kenan,
+                                            SirenAttack)
 from speakerguard_tpu_torch.defenses.registry import parser_defense
 from speakerguard_tpu_torch.models.audionet import AudioNet, init_audionet
 from speakerguard_tpu_torch.models.defended import DefendedModel
@@ -62,14 +75,20 @@ def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", choices=("xv_plda", "iv_plda", "audionet"),
                    default="xv_plda")
-    p.add_argument("--attack", choices=("pgd", "cw2", "fakebob"),
-                   default="pgd")
-    p.add_argument("--batch", type=int, default=512)
+    p.add_argument("--attack", choices=("pgd", "cw2", "fakebob", "siren",
+                                        "kenan_ssa"), default="pgd")
+    p.add_argument("--batch", type=int, default=None,
+                   help="default 512; siren 32 on xv-PLDA, 16 otherwise; "
+                        "kenan_ssa 16")
     p.add_argument("--iters", type=int, default=100)
     p.add_argument("--cw2-iters", type=int, default=200)
     p.add_argument("--cw2-bss", type=int, default=3)
     p.add_argument("--fb-iters", type=int, default=100)
     p.add_argument("--fb-samples", type=int, default=50)
+    p.add_argument("--siren-epochs", type=int, default=10)
+    p.add_argument("--siren-iters", type=int, default=30)
+    p.add_argument("--siren-particles", type=int, default=25)
+    p.add_argument("--kenan-iters", type=int, default=15)
     p.add_argument("--defense", default=None,
                    help="comma-separated defenses, e.g. QT,FeCo")
     p.add_argument("--defense-param", default=None,
@@ -77,12 +96,19 @@ def parse_args(argv):
     p.add_argument("--defense-flag", default=None,
                    help="','-separated flag levels, one per defense")
     p.add_argument("--eot", type=int, default=1)
-    p.add_argument("--wav-len", type=int, default=48000)
+    p.add_argument("--wav-len", type=int, default=None,
+                   help="default 48000; kenan_ssa 8000")
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.batch is None:
+        args.batch = {"siren": 32 if args.model == "xv_plda" else 16,
+                      "kenan_ssa": 16}.get(args.attack, 512)
+    if args.wav_len is None:
+        args.wav_len = 8000 if args.attack == "kenan_ssa" else 48000
+    return args
 
 
 FEATURE_LEVEL = ("FeCo", "FEATURE_COMPRESSION")
@@ -138,6 +164,16 @@ def run(args) -> dict:
                       samples_per_draw=args.fb_samples,
                       samples_per_draw_batch_size=args.fb_samples,
                       max_lr=0.001, stop_early=False)
+    elif args.attack == "siren":
+        iters = args.siren_epochs * args.siren_iters
+        atk = SirenAttack(model, task="CSI", epsilon=0.002,
+                          max_epoch=args.siren_epochs,
+                          max_iter=args.siren_iters,
+                          n_particles=args.siren_particles,
+                          abort_early=False)
+    elif args.attack == "kenan_ssa":
+        iters = args.kenan_iters
+        atk = Kenan(model, atk_name="ssa", max_iter=iters)
     else:
         iters = args.iters
         atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
@@ -172,6 +208,12 @@ def run(args) -> dict:
     if args.attack == "fakebob":
         rec["executed_iters"] = atk.last_executed_iters
         rec["ms_per_executed_iter"] = dt * 1e3 / atk.last_executed_iters
+    elif args.attack == "siren":
+        rec["executed_epochs"] = atk.last_executed_epochs
+        rec["particle_evals"] = atk.last_particle_evals
+        rec["guard_evals"] = atk.last_guard_evals
+    elif args.attack == "kenan_ssa":
+        rec["executed_steps"] = atk.last_executed_steps
     return rec
 
 

@@ -4,14 +4,13 @@ Port of speakerguard_tpu/defenses/registry.py (reference
 defense/defense.py): the same registry of input transformations in four
 groups, the same (defense, defense_param, defense_flag, defense_order)
 parsing, and the same canonical defense-name string used in artifact paths.
-The speech-compression codecs are not ported yet: naming one raises
-NotImplementedError.
 """
 
 import functools
 
 from speakerguard_tpu_torch.defenses import feature_level as FL
 from speakerguard_tpu_torch.defenses import frequency_domain as FD
+from speakerguard_tpu_torch.defenses import speech_compression as SC
 from speakerguard_tpu_torch.defenses import time_domain as TD
 
 CODECS = ["OPUS", "SPEEX", "AMR", "AAC_V", "AAC_C", "MP3_V", "MP3_C",
@@ -28,17 +27,13 @@ ROBUST_TRAINING = ["AdvT"]  # adversarial training
 
 _DEFENSES = {name: getattr(src, name) for src, names in (
     (TD, ("QT", "BDR", "AT", "AS", "MS")), (FD, ("DS", "LPF", "BPF")),
-    (FL, ("FEATURE_COMPRESSION", "FeCo"))) for name in names}
+    (SC, CODECS), (FL, ("FEATURE_COMPRESSION", "FeCo"))) for name in names}
 
 
 def lambda_defense(defense: str, defense_param):
     """Returns f(x, draw=None) (reference defense/defense.py:53-85)."""
     if defense is None:
         return lambda x, draw=None: x
-    if defense in CODECS:
-        raise NotImplementedError(
-            f"{defense}: the speech-compression codecs are not ported to "
-            "speakerguard_tpu_torch yet (ROADMAP.md, queue 1 item 4)")
     if defense not in _DEFENSES:
         raise NotImplementedError(f"Unsupported defense {defense}")
     f = _DEFENSES[defense]

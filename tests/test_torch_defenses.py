@@ -32,12 +32,15 @@ from speakerguard_tpu.ops.resample import resample as jax_resample
 from speakerguard_tpu_torch.adaptive.bpda import bpda
 from speakerguard_tpu_torch.defenses import feature_level as FL
 from speakerguard_tpu_torch.defenses import frequency_domain as FD
+from speakerguard_tpu_torch.defenses import speech_compression as SC
 from speakerguard_tpu_torch.defenses import time_domain as TD
 from speakerguard_tpu_torch.defenses.registry import (
     CODECS, INPUT_TRANSFORMATIONS, lambda_defense, parser_defense)
 from speakerguard_tpu_torch.ops import iir
 from speakerguard_tpu_torch.ops import kmeans as km
 from speakerguard_tpu_torch.ops.resample import resample
+
+from test_torch_speech_compression import fake_ffmpeg  # noqa: F401
 
 CONV_TOL = dict(rtol=1e-5, atol=1e-6)
 KM_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -228,10 +231,22 @@ def test_registry_resolves_the_same_functions():
 
 
 @pytest.mark.parametrize("codec", CODECS)
-def test_codecs_are_not_ported_yet(codec):
+def test_codecs_resolve_like_jax(codec, fake_ffmpeg):
+    """Each codec through both registries, with its default parameter as
+    the CLI string: the same keywords, and equal outputs (MULAW within
+    rtol 1e-6; the ffmpeg ones through the stand-in ffmpeg of
+    tests/test_torch_speech_compression.py, where the codecs are pinned to
+    JAX)."""
     assert codec in INPUT_TRANSFORMATIONS
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        lambda_defense(codec, None)
+    param = [str(SC.DEFAULT_PARAMS[codec])]
+    jf, f = jax_lambda_defense(codec, param), lambda_defense(codec, param)
+    assert f.keywords == jf.keywords == {"param": SC.DEFAULT_PARAMS[codec]}
+    x = _wave(15, (1, 600))
+    got, want = f(torch.tensor(x)).numpy(), np.asarray(jf(jnp.asarray(x)))
+    if codec == "MULAW":  # log1p and pow differ by an ulp
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def test_unknown_defense_raises():

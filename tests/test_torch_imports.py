@@ -31,7 +31,8 @@ def _forbidden(name):
     "path", PORT_FILES + [ROOT / "chip_smoke.py",
                           ROOT / "tools" / "torch_pgd_rounds.py",
                           ROOT / "tools" / "chol_sweep_phases.py",
-                          ROOT / "tools" / "stats_bwd_launches.py"],
+                          ROOT / "tools" / "stats_bwd_launches.py",
+                          ROOT / "tools" / "ssa_svd_drivers.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
@@ -52,6 +53,8 @@ SLICE_MODULES = [
     "ops/resample.py", "ops/iir.py", "defenses/frequency_domain.py",
     "ops/kmeans.py", "defenses/feature_level.py", "defenses/registry.py",
     "models/defended.py",
+    "ops/adpcm.py", "defenses/speech_compression.py", "ops/ssa.py",
+    "attacks/kenan.py", "attacks/siren.py",
 ]
 
 
