@@ -199,7 +199,34 @@ Phases, one JSON line each:
               guard forwards + 2, cholesky_rt their sum, stats_bwd 0.  Each
               Siren slice's success must equal an exact re-evaluation of
               its audio (the final re-scoring's dither replayed).
- 35. kernels  one line listing every ported kernel (fused_loglike,
+ 35. train_small_reference  one f32 natural AudioNet train step (10
+              classes, 4 x 16,000 samples) on the card and the CPU from the
+              same weights and augmentation draws: loss, every gradient
+              leaf, the new BN state, the parameters; then the checkpoint
+              round trip on the card (the resumed step's loss).
+ 36. slice_train_natural  AudioNet training at the JAX bench's point
+              (bench.py:63-132): 251 classes, batch 128 of 80,000 samples,
+              Adam 1e-3, aug_eps 0.002 (256 waves a step), f32; two warm-up
+              steps (cuDNN's autotuning), 5 timed steps; the loss falls, the parameters, Adam's
+              state and the BN state stay float32 and finite; ms per step,
+              utterances/s (batch / step time), peak memory, the CUDA-event
+              ms of the frontend, the CNN forward, forward and backward and
+              Adam, and one profiled step (the device's busy share).  No
+              hand kernel lies on the training path: every count 0.
+ 37. slice_train_natural_bf16  the same with compute_dtype="bf16".
+ 38. slice_train_adver  the same point with PGD-10 (eps 0.002, step
+              0.0004) on half the batch against the live model, aug_eps 0,
+              f32: two warm-up and 3 timed steps; the adversarial half
+              within eps of the clean waves and in [-1, 1]; acc_adv and
+              acc_nor.
+ 39. slice_train_data  the trainer's input path: a synthetic Spk251_train
+              tree (251 speakers x 1 WAV of 6 s) in a temporary directory,
+              the label encoder, one epoch of f32 natural steps at batch
+              128 through Spk251_train(..., wav_length=80000,
+              seed=0).batches(128, shuffle=True): two batches (128, 123),
+              both served by the native WAV loader (built with g++ into
+              csrc/_build/), a finite loss.
+ 40. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
               launches; stats_fwd and cholesky_rt with their NES-shape
               case; fused_loglike, stats_fwd and stats_bwd with their
@@ -2998,6 +3025,476 @@ def phase_slice15(torch, wrappers):
     return out
 
 
+TRAIN_BATCH, TRAIN_LEN, TRAIN_CLASSES = 128, 80000, 251
+
+
+def _tree_close(torch, got, want, bar):
+    """{leaf: error} of two trees of tensors (``got`` moved to ``want``'s
+    device); ``bar(name, want_leaf, top) -> allowed error``, ``top`` the
+    largest |entry| over all of ``want``'s leaves."""
+    from speakerguard_tpu_torch.models.base import tree_leaves
+    w = dict(tree_leaves(want))
+    top = max(float(t.abs().max()) for t in w.values())
+    errs, bad = {}, []
+    for n, t in tree_leaves(got):
+        e = float((t.to(w[n].device).float() - w[n].float()).abs().max())
+        errs[n] = e
+        if not e <= bar(n, w[n], top):
+            bad.append(n)
+    return errs, bad
+
+
+def _pool_orders(torch, an, fn):
+    """Run ``fn()`` with AudioNet's max-pools recorded: [(input, the
+    index of each window's larger element)] in call order."""
+    orig, seen = an._maxpool1d, []
+
+    def recording(x):
+        b, c, t = x.shape
+        w = x.detach()[:, :, :2 * (t // 2)].reshape(b, c, t // 2, 2)
+        seen.append((w, w.argmax(dim=-1)))
+        return orig(x)
+
+    an._maxpool1d = recording
+    try:
+        out = fn()
+    finally:
+        an._maxpool1d = orig
+    return out, seen
+
+
+def phase_train_small_reference(torch):
+    """One f32 natural step of AudioNet (10 classes) at 4 waves of 16,000
+    samples on the card and on the CPU from the same weights and the same
+    augmentation draws.
+
+    The features of the doubled batch: rtol 1e-4, atol 1e-3 (dB), as the
+    CPU tests hold the frontend.  The loss (rtol 1e-5), the new BN state
+    (rtol 1e-5, atol 1e-6) and the updated parameters (within 2 lr).  The
+    gradient: the max-pools and the max over time send it through one
+    element of each window, so where a window's two values lie within
+    rounding of each other the devices may pick different elements and
+    every leaf ahead of that pool gets another, equally valid, gradient.
+    The phase records each pool's inputs on both devices: the leaves after
+    the first pool whose order differs (all leaves when none does) are held
+    to 1e-4 of their scale (the larger of their largest |g| and 1% of the
+    model's: the conv biases ahead of a train-mode BN have an exact
+    gradient of 0, conv1's BN scale nearly so), and each window whose order
+    differs must be a near tie (its two values within 1e-4 of each other,
+    relative).  Then the CNN alone in float64 on both devices, on the same
+    features, where rounding cannot reorder such a window: every gradient
+    leaf within 1e-9 of its scale.  Last, the checkpoint round trip on the
+    card: save, load, and the next step equal to the step without the
+    round trip (loss rtol 1e-6), as tests/test_training.py:46 holds it."""
+    import tempfile
+    from speakerguard_tpu_torch.models import audionet as an
+    from speakerguard_tpu_torch.models.base import (tree_leaves, tree_map,
+                                                    tree_rebuild)
+    from speakerguard_tpu_torch.models.training import (
+        cross_entropy, load_checkpoint, loss_and_grads,
+        make_natural_train_step, save_checkpoint)
+    from speakerguard_tpu_torch.ops.logmel import audionet_logmel
+    from speakerguard_tpu_torch.optim import Adam
+    rng = np.random.default_rng(21)
+    params, state = an.init_audionet(rng, 10, device="cpu")
+    wavs = rng.uniform(-0.3, 0.3, (4, 16000)).astype(np.float32)
+    labels = rng.integers(0, 10, 4)
+    a = np.float32(rng.random())
+    noise = rng.random((4, 16000), dtype=np.float32)
+    lr = 1e-3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        s = tree_map(lambda t: t.to(dev), state)
+        x = torch.tensor(wavs, device=dev)
+        y = torch.tensor(labels, device=dev)
+        draws = {"aug_scale": torch.tensor(a, device=dev),
+                 "aug_noise": torch.tensor(noise, device=dev)}
+        adam = Adam(lr)
+        step = make_natural_train_step(adam, aug_eps=0.002)
+        res = step(p, s, adam.init(p), x, y,
+                   draw_fn=lambda kind, shape: draws[kind])
+        x_all = torch.cat([x, x + (2.0 * draws["aug_scale"] * 0.002
+                                   * draws["aug_noise"]
+                                   - draws["aug_scale"] * 0.002)])
+        y_all = torch.cat([y, y])
+        with torch.no_grad():
+            feats = audionet_logmel(x_all)
+        (_, grads, _, _), pools = _pool_orders(
+            torch, an, lambda: loss_and_grads(p, s, x_all, y_all))
+        out[dev] = (res, grads, feats, pools)
+    (c_res, c_g, c_f, c_pools), (g_res, g_g, g_f, g_pools) = (out["cpu"],
+                                                              out["cuda"])
+    feat_err = float((g_f.cpu() - c_f).abs().max())
+    feat_ok = bool(torch.allclose(g_f.cpu(), c_f, rtol=1e-4, atol=1e-3))
+    loss_err = abs(float(g_res[3]) - float(c_res[3]))
+
+    # the pools whose window order differs, and the leaves after the first
+    flips, near = [], True
+    for i, ((cw, ci), (gw, gi)) in enumerate(zip(c_pools, g_pools)):
+        differ = (gi.cpu() != ci) & (cw.amax(-1) > 0)
+        n = int(differ.sum())
+        if n:
+            gap = ((cw[..., 0] - cw[..., 1]).abs()
+                   / cw.abs().amax(-1).clamp_min(1e-30))[differ]
+            flips.append({"pool": i, "windows": n,
+                          "max_rel_gap": float(gap.max())})
+            near = near and float(gap.max()) <= 1e-4
+    pool_blocks = [i for i, spec in enumerate(an.CONV_SPEC) if spec[4]]
+    first = pool_blocks[flips[0]["pool"]] if flips else None
+
+    def after_first_flip(n):
+        if first is None:
+            return True
+        if n.startswith(("fc_", "conv1_")):
+            return n.startswith("fc_")
+        return int(n.rsplit("__", 1)[1]) > first
+
+    def grad_bar(n, w, top):
+        if not after_first_flip(n):
+            return float("inf")
+        return 1e-4 * max(float(w.abs().max()), 1e-2 * top)
+
+    grad_errs, grad_bad = _tree_close(torch, g_g, c_g, grad_bar)
+    state_errs, state_bad = _tree_close(
+        torch, g_res[1], c_res[1],
+        lambda n, w, top: 1e-6 + 1e-5 * float(w.abs().max()))
+    param_errs, param_bad = _tree_close(torch, g_res[0], c_res[0],
+                                        lambda n, w, top: 2 * lr)
+
+    # the CNN alone in float64 on the same features
+    g64, pools64 = {}, {}
+    y_all = torch.tensor(np.concatenate([labels, labels]))
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, torch.float64), params)
+        s = tree_map(lambda t: t.to(dev, torch.float64), state)
+        leaves = dict(tree_leaves(tree_map(
+            lambda t: t.requires_grad_(True), p)))
+
+        def grads64():
+            logits, _, _ = an.audionet_logits(
+                tree_rebuild(p, leaves.__getitem__), s,
+                c_f.to(dev, torch.float64), train=True)
+            return torch.autograd.grad(torch.mean(cross_entropy(
+                logits, y_all.to(dev))), list(leaves.values()))
+
+        g, pools64[dev] = _pool_orders(torch, an, grads64)
+        g64[dev] = dict(zip(leaves, g))
+    top64 = max(float(t.abs().max()) for t in g64["cpu"].values())
+    f64_errs = {n: float((g64["cuda"][n].cpu() - t).abs().max()
+                         / max(float(t.abs().max()), 1e-2 * top64))
+                for n, t in g64["cpu"].items()}
+    f64_flips = [int(((gi.cpu() != ci) & (cw.amax(-1) > 0)).sum())
+                 for (cw, ci), (_, gi) in zip(pools64["cpu"],
+                                              pools64["cuda"])]
+
+    # the checkpoint round trip on the card
+    p, s, o = g_res[:3]
+    x = torch.tensor(wavs, device="cuda")
+    y = torch.tensor(labels, device="cuda")
+    step = make_natural_train_step(lr, aug_eps=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "audionet.ckpt")
+        save_checkpoint(path, p, s, o, epoch=1)
+        p2, s2, o2, epoch = load_checkpoint(path, device="cuda")
+    direct = float(step(p, s, o, x, y)[3])
+    resumed = float(step(p2, s2, o2, x, y)[3])
+    ok = bool(feat_ok and loss_err <= 1e-5 * abs(float(c_res[3]))
+              and not grad_bad and near and not state_bad and not param_bad
+              and max(f64_errs.values()) <= 1e-9 and epoch == 1
+              and o2.count == o.count
+              and abs(resumed - direct) <= 1e-6 * abs(direct))
+    rec = {"phase": "train_small_reference", "classes": 10, "batch": 4,
+           "samples": 16000, "aug_eps": 0.002,
+           "feat_max_abs_err": feat_err,
+           "loss_cpu": float(c_res[3]), "loss_cuda": float(g_res[3]),
+           "loss_abs_err": loss_err,
+           "pool_order_differs": flips,
+           "grad_leaves_compared": sorted(n for n in grad_errs
+                                          if after_first_flip(n)),
+           "grad_max_err": max(grad_errs.values()), "grad_errs": grad_errs,
+           "grad_bad": grad_bad,
+           "f64_grad_max_rel_err": max(f64_errs.values()),
+           "f64_grad_rel_errs": f64_errs, "f64_pool_order_differs": f64_flips,
+           "state_max_err": max(state_errs.values()),
+           "state_bad": state_bad,
+           "param_max_err": max(param_errs.values()),
+           "param_bad": param_bad,
+           "ckpt_loss_direct": direct, "ckpt_loss_resumed": resumed,
+           "tolerance": "features rtol 1e-4 atol 1e-3; loss rtol 1e-5; "
+                        "gradient leaves after the first pool whose order "
+                        "differs (all when none) 1e-4 of max(their max |g|,"
+                        " 1% of the model's), differing windows near ties "
+                        "(1e-4); float64 CNN gradients 1e-9 of scale; state"
+                        " rtol 1e-5 atol 1e-6; parameters 2 lr; resumed "
+                        "loss rtol 1e-6",
+           "ok": ok}
+    emit(rec)
+    if not ok:
+        raise RuntimeError(f"train_small_reference failed: {rec}")
+
+
+def _f32_finite(torch, *trees):
+    from speakerguard_tpu_torch.models.base import tree_leaves
+    return all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+               for tree in trees for _, t in tree_leaves(tree))
+
+
+def train_breakdown(torch, params, state, opt_state, wavs, labels, opt):
+    """CUDA-event ms of the pieces of one f32 natural step on its doubled
+    batch: the exact log-mel frontend; the CNN forward in train mode (the
+    BN running-stat updates included); forward and backward to the
+    parameter gradient; the Adam update."""
+    from speakerguard_tpu_torch.models.audionet import audionet_logits
+    from speakerguard_tpu_torch.models.base import tree_leaves, tree_map
+    from speakerguard_tpu_torch.models.training import cross_entropy
+    from speakerguard_tpu_torch.ops.logmel import audionet_logmel
+    x = torch.cat([wavs, wavs])
+    y = torch.cat([labels, labels])
+    with torch.no_grad():
+        feats = audionet_logmel(x)
+
+    def frontend():
+        with torch.no_grad():
+            audionet_logmel(x)
+
+    def forward():
+        with torch.no_grad():
+            audionet_logits(params, state, feats, train=True)
+
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    flat = [t for _, t in tree_leaves(leaves)]
+
+    def forward_backward():
+        logits, _, _ = audionet_logits(leaves, state, feats, train=True)
+        torch.autograd.grad(torch.mean(cross_entropy(logits, y)), flat)
+
+    grads = tree_map(torch.ones_like, params)
+    return {"frontend_ms": cuda_ms(frontend, 2, 5),
+            "cnn_forward_ms": cuda_ms(forward, 2, 5),
+            "cnn_forward_backward_ms": cuda_ms(forward_backward, 2, 5),
+            "adam_ms": cuda_ms(lambda: opt.update(params, grads, opt_state),
+                               2, 5)}
+
+
+def run_train_slice(torch, name, wrappers, kind, precision, timed,
+                    profile_dir, breakdown=False):
+    """AudioNet training at the JAX bench's point (bench.py:63-132):
+    init_audionet(rng seed 0, 251), then 128 waves of 80,000 samples and
+    their labels from the same rng, Adam 1e-3; ``kind`` "natural" (aug_eps
+    0.002: 256 waves a step) or "adver" (PGD-10, eps 0.002, step 0.0004, on
+    half the batch against the live model; aug_eps 0).  Two warm-up steps
+    (cuDNN's autotuning: the first step's shapes, then the second's
+    parameters, views into Adam's flat buffer, at new alignments), then
+    ``timed`` steps on the one batch, the wrappers' counts set to 0
+    just before and read just after (all 0: no hand kernel lies on the
+    path).  Asserts that the loss falls and that the parameters, Adam's
+    state and the BN state are float32 and finite; for "adver", that the
+    adversarial half lies within eps of the clean waves and in [-1, 1].
+    Then one profiled step.  Returns the launch counts."""
+    from speakerguard_tpu_torch.models.audionet import init_audionet
+    from speakerguard_tpu_torch.models.training import (
+        make_adver_train_step, make_natural_train_step,
+        make_pgd_for_training)
+    from speakerguard_tpu_torch.optim import Adam
+    rng = np.random.default_rng(0)
+    params, state = init_audionet(rng, TRAIN_CLASSES, device="cuda")
+    wavs = torch.tensor(rng.uniform(-0.3, 0.3, (TRAIN_BATCH, TRAIN_LEN))
+                        .astype(np.float32), device="cuda")
+    labels = torch.tensor(rng.integers(0, TRAIN_CLASSES, TRAIN_BATCH),
+                          device="cuda")
+    opt = Adam(1e-3)
+    opt_state = opt.init(params)
+    advs = []
+    eps = 0.002
+    if kind == "adver":
+        pgd = make_pgd_for_training(epsilon=eps, step_size=0.0004,
+                                    max_iter=10)
+
+        def attack(*a):
+            advs.append(pgd(*a))
+            return advs[-1]
+
+        step = make_adver_train_step(opt, attack, ratio=0.5, aug_eps=0.0,
+                                     compute_dtype=precision)
+    else:
+        step = make_natural_train_step(opt, aug_eps=0.002,
+                                       compute_dtype=precision)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    warmup_s, first_loss = [], None
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = step(params, state, opt_state, wavs, labels, rng=gen)
+        params, state, opt_state = out[:3]
+        first_loss = first_loss if first_loss is not None else float(out[3])
+        warmup_s.append(time.perf_counter() - t0)
+
+    for w in wrappers.values():
+        w.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, accs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        out = step(params, state, opt_state, wavs, labels, rng=gen)
+        params, state, opt_state = out[:3]
+        losses.append(out[3])
+        accs.append(out[4:])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    launches = {k: w.launches for k, w in wrappers.items()}
+    plain = {k: w.plain_calls for k, w in wrappers.items()}
+    losses = [first_loss] + [float(v) for v in losses]
+    n_adv = TRAIN_BATCH // 2
+    rec = {"phase": name, "model": "audionet", "classes": TRAIN_CLASSES,
+           "batch": TRAIN_BATCH, "samples": TRAIN_LEN, "train": kind,
+           "precision": precision, "optimizer": "adam 1e-3",
+           "aug_eps": 0.002 if kind == "natural" else 0.0,
+           "warmup_steps_s": warmup_s, "timed_steps": timed,
+           "ms_per_step": step_s * 1e3,
+           "utts_per_s": TRAIN_BATCH / step_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses,
+           "loss_falls": losses[-1] < losses[0],
+           "f32_finite": _f32_finite(torch, params, state, opt_state.mu,
+                                     opt_state.nu),
+           "launches": launches, "plain_calls": plain}
+    if kind == "adver":
+        clean = wavs[:n_adv]
+        dist = max(float((a - clean).abs().max()) for a in advs)
+        rec.update({
+            "attack": "PGD-10 on half the batch, BN in eval mode",
+            "acc_adv": [float(a[0]) for a in accs],
+            "acc_nor": [float(a[1]) for a in accs],
+            "adv_max_dist": dist,
+            "adv_within_eps": dist <= eps + 1e-6,
+            "adv_in_range": all(float(a.abs().max()) <= 1.0 for a in advs)})
+    else:
+        rec["acc"] = [float(a[0]) for a in accs]
+        if breakdown:
+            rec["breakdown"] = train_breakdown(torch, params, state,
+                                               opt_state, wavs, labels, opt)
+    rec["profile"] = {
+        "note": "one step; wall time includes the profiler's own overhead",
+        **profile_call(torch, lambda: step(params, state, opt_state, wavs,
+                                           labels, rng=gen),
+                       profile_dir, name)}
+    emit(rec)
+    ok = (rec["loss_falls"] and rec["f32_finite"]
+          and rec.get("adv_within_eps", True)
+          and rec.get("adv_in_range", True))
+    if not ok:
+        raise RuntimeError(f"{name} output check failed: {rec}")
+    if any(launches.values()) or any(plain.values()):
+        raise RuntimeError(f"{name}: launches {launches}, plain calls "
+                           f"{plain} (expected all 0)")
+    return launches
+
+
+def phase_train_data(torch, wrappers):
+    """The trainer's input path end to end: a synthetic Spk251_train tree
+    (251 speakers x 1 WAV of 6 s, ~48 MB) in a temporary directory, the
+    label encoder built from its speaker directories as the training CLI
+    builds it, then one epoch of f32 natural steps at batch 128 through
+    ``Spk251_train(..., wav_length=80000, seed=0).batches(128,
+    shuffle=True)``: two batches, 128 and 123 waves, each cropped from the
+    dataset's seeded stream.  The native loader must serve both (no
+    fall-back to scipy), the loss must be finite, every launch count 0.
+    Returns the launch counts."""
+    import tempfile
+    from speakerguard_tpu_torch.data.dataset import Spk251_train
+    from speakerguard_tpu_torch.models.audionet import (init_audionet,
+                                                        parse_label_encoder)
+    from speakerguard_tpu_torch.models.training import (
+        make_natural_train_step)
+    from speakerguard_tpu_torch.optim import Adam
+    from speakerguard_tpu_torch.utils import native
+    from speakerguard_tpu_torch.utils.audio_io import write_wav
+    from speakerguard_tpu_torch.utils.kaldi_io import write_label_encoder
+    n_spk, length = 251, 96000
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        train_root = os.path.join(root, "Spk251_train")
+        for i in range(n_spk):
+            d = os.path.join(train_root, f"spk{i:03d}")
+            os.makedirs(d)
+            write_wav(os.path.join(d, "u0.wav"), (rng.standard_normal(
+                length) * 0.1).astype(np.float32))
+        write_s = time.perf_counter() - t0
+        enc = os.path.join(root, "label_encoder.txt")
+        write_label_encoder(enc, sorted(os.listdir(train_root)))
+        spk_ids = parse_label_encoder(enc)
+        params, state = init_audionet(np.random.default_rng(0), len(spk_ids),
+                                      device="cuda")
+        opt = Adam(1e-3)
+        opt_state = opt.init(params)
+        step = make_natural_train_step(opt, aug_eps=0.002)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        train = Spk251_train(spk_ids, root, wav_length=TRAIN_LEN, seed=0)
+        for w in wrappers.values():
+            w.reset_counts()
+        sizes, losses, load_s = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = train.batches(TRAIN_BATCH, shuffle=True)
+        while True:
+            t1 = time.perf_counter()
+            try:
+                wavs, labels = next(batches)
+            except StopIteration:
+                break
+            load_s.append(time.perf_counter() - t1)
+            x = torch.tensor(wavs[:, 0, :], device="cuda")
+            y = torch.tensor(labels, device="cuda")
+            params, state, opt_state, loss, _ = step(
+                params, state, opt_state, x, y, rng=gen)
+            sizes.append(int(x.shape[0]))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    plain = {k: w.plain_calls for k, w in wrappers.items()}
+    losses = [float(v) for v in losses]
+    rec = {"phase": "slice_train_data", "speakers": n_spk,
+           "file_samples": length, "wav_length": TRAIN_LEN,
+           "write_s": write_s, "batch_sizes": sizes,
+           "batch_load_s": load_s, "epoch_s": epoch_s, "losses": losses,
+           "loader_counts": dict(train.loader_counts),
+           "native_library": native.library_path(),
+           "native_build_error": native.build_error(),
+           "launches": launches, "plain_calls": plain}
+    emit(rec)
+    ok = (sizes == [TRAIN_BATCH, n_spk - TRAIN_BATCH]
+          and train.loader_counts == {"native": 2, "scipy": 0}
+          and all(np.isfinite(losses)))
+    if not ok:
+        raise RuntimeError(f"slice_train_data failed: {rec}")
+    if any(launches.values()) or any(plain.values()):
+        raise RuntimeError(f"slice_train_data: launches {launches}, plain "
+                           f"calls {plain} (expected all 0)")
+    return launches
+
+
+def phase_train_slices(torch, wrappers, profile_dir):
+    """train_small_reference, then the three training slices at the JAX
+    bench's point, then the input path.  Returns {slice: launch counts}."""
+    phase_train_small_reference(torch)
+    out = {}
+    for name, kind, precision, timed in (
+            ("slice_train_natural", "natural", "f32", 5),
+            ("slice_train_natural_bf16", "natural", "bf16", 5),
+            ("slice_train_adver", "adver", "f32", 3)):
+        out[name] = run_train_slice(torch, name, wrappers, kind, precision,
+                                    timed, profile_dir,
+                                    breakdown=name == "slice_train_natural")
+        torch.cuda.empty_cache()
+    out["slice_train_data"] = phase_train_data(torch, wrappers)
+    return out
+
+
 def phase_rounds(torch, models, x, rounds, iters=10):
     """ms per PGD iteration of the given models, ``rounds`` times each, the
     order rotated every round so that no model always runs first."""
@@ -3019,22 +3516,16 @@ def phase_rounds(torch, models, x, rounds, iters=10):
           "median": {n: statistics.median(v) for n, v in times.items()}})
 
 
-def profile_one_iteration(torch, model, x, labels, out_dir, name,
-                          atk=None, note=None):
-    """A torch.profiler table of one attack on ``model``: by default one
-    PGD iteration plus the exact final evaluation."""
+def profile_call(torch, fn, out_dir, name):
+    """One call of ``fn`` under torch.profiler: its wall time, the device
+    time and busy share, and the top device ops; with ``out_dir``, the
+    table in out_dir/profile_<name>.txt."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    from speakerguard_tpu_torch.attacks import PGD
-    if atk is None:
-        atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
-                  max_iter=1, loss="Entropy")
-        note = "one PGD iteration plus the exact final evaluation"
-    atk.attack(x, labels, rng=0)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        atk.attack(x, labels, rng=0)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -3049,18 +3540,33 @@ def profile_one_iteration(torch, model, x, labels, out_dir, name,
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
-        f.write(table)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+            f.write(table)
     top = sorted(events, key=lambda e: -dev_us(e))
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": (device_ms / wall_ms if device_ms
+                                  else None),
+            "top": [{"name": e.key[:60], "self_device_ms": dev_us(e) / 1e3,
+                     "count": e.count} for e in top[:15]]}
+
+
+def profile_one_iteration(torch, model, x, labels, out_dir, name,
+                          atk=None, note=None):
+    """A torch.profiler table of one attack on ``model``: by default one
+    PGD iteration plus the exact final evaluation."""
+    from speakerguard_tpu_torch.attacks import PGD
+    if atk is None:
+        atk = PGD(model, task="CSI", epsilon=0.002, step_size=0.0004,
+                  max_iter=1, loss="Entropy")
+        note = "one PGD iteration plus the exact final evaluation"
+    atk.attack(x, labels, rng=0)
+    rec = profile_call(torch, lambda: atk.attack(x, labels, rng=0), out_dir,
+                       name)
     emit({"phase": "profile", "slice": name, "iterations_profiled": 1,
           "note": note + "; wall time includes the profiler's own "
-                         "overhead",
-          "wall_ms": wall_ms, "device_ms": device_ms,
-          "device_busy_share": (device_ms / wall_ms if device_ms
-                                else None),
-          "top": [{"name": e.key[:60], "self_device_ms": dev_us(e) / 1e3,
-                   "count": e.count} for e in top[:15]]})
+                         "overhead", **rec})
 
 
 def main(argv):
@@ -3150,6 +3656,8 @@ def main(argv):
     adpcm_rec = phase_codec_small_reference(torch, clock_mhz)
     siren_recs = phase_siren_kernels(torch, chol)
     launches.update(phase_slice15(torch, wrappers))
+    torch.cuda.empty_cache()
+    launches.update(phase_train_slices(torch, wrappers, profile_dir))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"

@@ -15,25 +15,9 @@ from speakerguard_tpu_torch.attacks.base import (Attack, make_generator,
                                                  normalize_wav_input)
 from speakerguard_tpu_torch.attacks.losses import margin_loss
 from speakerguard_tpu_torch.models.base import decide
+from speakerguard_tpu_torch.optim import adam_update
 
 ATANH_CLIP = 0.999999
-# optax.adam's defaults, which the JAX package uses
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-def adam_update(grad, mu, nu, count, lr):
-    """One step of optax.adam(lr) (eps_root 0) in optax's order of
-    operations.  ``count`` is the step's 1-based count.  Returns (update,
-    mu, nu); the update is added to the parameter."""
-    mu = (1 - ADAM_B1) * grad + ADAM_B1 * mu
-    nu = (1 - ADAM_B2) * grad ** 2 + ADAM_B2 * nu
-    # optax forms decay**count as a float32 pow; a Python int exponent
-    # would take torch's repeated-product path, which rounds differently
-    t = torch.full((), float(count), device=grad.device)
-    bc1 = 1 - torch.pow(torch.full_like(t, ADAM_B1), t)
-    bc2 = 1 - torch.pow(torch.full_like(t, ADAM_B2), t)
-    update = -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS))
-    return update, mu, nu
 
 
 def _merge_best(step_best, global_best):

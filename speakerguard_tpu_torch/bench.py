@@ -1,8 +1,9 @@
-"""PGD-100, CW2, FAKEBOB, SirenAttack or Kenan ssa on the port: the JAX
-package's bench.py for xv-PLDA (its default), iv-PLDA (its
-BENCH_MODEL=iv_plda) and AudioNet (BENCH_MODEL=audionet), with PGD,
+"""PGD-100, CW2, FAKEBOB, SirenAttack or Kenan ssa on the port, or AudioNet
+training: the JAX package's bench.py for xv-PLDA (its default), iv-PLDA
+(its BENCH_MODEL=iv_plda) and AudioNet (BENCH_MODEL=audionet), with PGD,
 (BENCH_ATTACK=cw2) CW2, (BENCH_ATTACK=fakebob) FAKEBOB, (BENCH_ATTACK=siren)
-SirenAttack or (BENCH_ATTACK=kenan_ssa) Kenan ssa.
+SirenAttack or (BENCH_ATTACK=kenan_ssa) Kenan ssa; or its
+BENCH_ATTACK=natural_train / adver_train with BENCH_TRAIN_PRECISION.
 
     python -m speakerguard_tpu_torch.bench [--model {xv_plda,iv_plda,audionet}]
         [--attack {pgd,cw2,fakebob,siren,kenan_ssa}] [--batch 512]
@@ -12,6 +13,9 @@ SirenAttack or (BENCH_ATTACK=kenan_ssa) Kenan ssa.
         [--defense QT,FeCo] [--defense-param '512|kmeans 0.2 L2']
         [--defense-flag 0,1] [--eot 2]
         [--wav-len 48000] [--warmup 1] [--reps 3] [--device cuda]
+    python -m speakerguard_tpu_torch.bench --train {natural,adver}
+        [--precision {f32,bf16}] [--batch 128] [--wav-len 80000]
+        [--warmup 2] [--reps 5] [--device cuda]
 
 The weights and inputs are drawn from numpy seed 0 in bench.py's order:
 xv-PLDA at full width with 10 enrolled speakers (CSI-E), iv-PLDA at full
@@ -49,6 +53,23 @@ After ``--warmup`` attacks, ``--reps`` attacks are timed on the host clock,
 each ending in a device synchronise.  Prints one JSON line in bench.py's
 shape: metric, value (utterances/s), unit, attack_success_rate_pct, batch,
 plus the device it ran on and the mean ms per counted iteration.
+
+``--train`` times AudioNet training as bench.py's bench_train does: 251
+classes (``init_audionet(rng, 251)``), Adam 1e-3, then the waves (uniform
+in +-0.3, batch 128 of 80,000 samples) and the labels (``integers(0,
+251)``), drawn in that order from numpy seed 0.  ``natural``: one step with
+noise augmentation (aug_eps 0.002, so 256 waves a step); ``adver``: PGD-10
+(eps 0.002, step 0.0004) against the live model on half the batch, no
+augmentation.  ``--precision bf16`` is the mixed-precision step.  After
+``--warmup`` steps (kept, as JAX keeps its compile step's; two, since
+cuDNN's autotuning takes the first step's shapes and then the second's
+parameters, views into Adam's flat buffer at new alignments), ``--reps``
+steps on the one batch are timed on the host clock, ending in a device
+synchronise.  One JSON line with JAX's metric name
+(``natural_train_audionet[_bf16]_utts_per_sec``,
+``adver_train_pgd10_audionet[_bf16]_utts_per_sec``; utterances/s =
+batch / step time), ``final_loss``, ``batch``, the ms per step, the peak
+device memory and the device.
 """
 
 import argparse
@@ -67,8 +88,12 @@ from speakerguard_tpu_torch.models.audionet import AudioNet, init_audionet
 from speakerguard_tpu_torch.models.defended import DefendedModel
 from speakerguard_tpu_torch.models.iv_plda import (IvPlda,
                                                    random_iv_plda_params)
+from speakerguard_tpu_torch.models.training import (make_adver_train_step,
+                                                    make_natural_train_step,
+                                                    make_pgd_for_training)
 from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
                                                    random_xv_plda_params)
+from speakerguard_tpu_torch.optim import Adam
 
 
 def parse_args(argv):
@@ -98,11 +123,24 @@ def parse_args(argv):
     p.add_argument("--eot", type=int, default=1)
     p.add_argument("--wav-len", type=int, default=None,
                    help="default 48000; kenan_ssa 8000")
-    p.add_argument("--warmup", type=int, default=1)
-    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--train", choices=("natural", "adver"), default=None,
+                   help="time AudioNet training instead of an attack")
+    p.add_argument("--precision", choices=("f32", "bf16"), default="f32")
+    p.add_argument("--warmup", type=int, default=None,
+                   help="default 1; 2 with --train")
+    p.add_argument("--reps", type=int, default=None,
+                   help="default 3; 5 with --train")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
+    if args.warmup is None:
+        args.warmup = 2 if args.train else 1
+    if args.reps is None:
+        args.reps = 5 if args.train else 3
+    if args.train:
+        args.batch = args.batch or 128
+        args.wav_len = args.wav_len or 80000
+        return args
     if args.batch is None:
         args.batch = {"siren": 32 if args.model == "xv_plda" else 16,
                       "kenan_ssa": 16}.get(args.attack, 512)
@@ -217,8 +255,60 @@ def run(args) -> dict:
     return rec
 
 
+def run_train(args) -> dict:
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(0)
+    num_class = 251
+    params, state = init_audionet(rng, num_class, device=dev)
+    opt = Adam(1e-3)
+    opt_state = opt.init(params)
+    tag = "" if args.precision == "f32" else f"_{args.precision}"
+    if args.train == "adver":
+        step = make_adver_train_step(
+            opt, make_pgd_for_training(epsilon=0.002, step_size=0.0004,
+                                       max_iter=10),
+            ratio=0.5, aug_eps=0.0, compute_dtype=args.precision)
+        metric = f"adver_train_pgd10_audionet{tag}_utts_per_sec"
+    else:
+        step = make_natural_train_step(opt, aug_eps=0.002,
+                                       compute_dtype=args.precision)
+        metric = f"natural_train_audionet{tag}_utts_per_sec"
+    wavs = torch.tensor(rng.uniform(-0.3, 0.3, (args.batch, args.wav_len))
+                        .astype(np.float32), device=dev)
+    labels = torch.tensor(rng.integers(0, num_class, args.batch),
+                          device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cuda = dev.type == "cuda"
+    for _ in range(args.warmup):
+        out = step(params, state, opt_state, wavs, labels, rng=gen)
+        params, state, opt_state = out[:3]
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(args.reps):
+        out = step(params, state, opt_state, wavs, labels, rng=gen)
+        params, state, opt_state = out[:3]
+    if cuda:
+        torch.cuda.synchronize(dev)
+    dt = (time.perf_counter() - t0) / args.reps
+    return {
+        "metric": metric, "value": args.batch / dt,
+        "unit": "utterances/sec", "final_loss": float(out[3]),
+        "batch": args.batch, "wav_len": args.wav_len,
+        "precision": args.precision, "ms_per_step": dt * 1e3,
+        "reps": args.reps,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if cuda else None),
+        "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+    }
+
+
 def main(argv=None) -> int:
-    print(json.dumps(run(parse_args(argv))), flush=True)
+    args = parse_args(argv)
+    print(json.dumps(run_train(args) if args.train else run(args)),
+          flush=True)
     return 0
 
 

@@ -80,7 +80,9 @@ def from_jax_layout(params, state, device=None
     with the field names of ``AudioNetParams`` / ``AudioNetState``):
     conv1's HWIO (5, 5, 1, 1) becomes OIHW, each block's (k, cin, cout)
     becomes (cout, cin, k), every other field is carried as it is, all
-    float32 on ``device``."""
+    float32 on ``device``.  ``params`` may also be a tree of Adam moments
+    shaped like the parameters; with ``state`` None the state comes back
+    None."""
     dev = resolve_device(device)
 
     def t(a, axes=None):
@@ -96,8 +98,34 @@ def from_jax_layout(params, state, device=None
         t(params.conv1_gamma), t(params.conv1_beta),
         tuple(t(w, (2, 1, 0)) for w in params.conv_w), ts(params.conv_b),
         ts(params.gamma), ts(params.beta), t(params.fc_w), t(params.fc_b))
+    if state is None:
+        return net, None
     return net, AudioNetState(t(state.conv1_mean), t(state.conv1_var),
                               ts(state.means), ts(state.vars))
+
+
+def to_jax_layout(params: AudioNetParams, state: AudioNetState
+                  ) -> tuple[AudioNetParams, AudioNetState]:
+    """The inverse of ``from_jax_layout``: the pair as float32 numpy arrays
+    in the JAX package's layouts (conv1 HWIO, each block (k, cin, cout)),
+    held in the port's tuple types.  ``params`` may also be a tree of Adam
+    moments shaped like the parameters; ``state`` may be None."""
+    def a(t, axes=None):
+        n = t.detach().to(torch.float32).cpu().numpy()
+        return np.ascontiguousarray(n if axes is None else n.transpose(axes))
+
+    def arrs(seq):
+        return tuple(a(t) for t in seq)
+
+    net = AudioNetParams(
+        a(params.conv1_w, (2, 3, 1, 0)), a(params.conv1_b),
+        a(params.conv1_gamma), a(params.conv1_beta),
+        tuple(a(w, (2, 1, 0)) for w in params.conv_w), arrs(params.conv_b),
+        arrs(params.gamma), arrs(params.beta), a(params.fc_w), a(params.fc_b))
+    if state is None:
+        return net, None
+    return net, AudioNetState(a(state.conv1_mean), a(state.conv1_var),
+                              arrs(state.means), arrs(state.vars))
 
 
 def init_audionet(rng: np.random.Generator, num_class: int, device=None
@@ -129,17 +157,29 @@ def init_audionet(rng: np.random.Generator, num_class: int, device=None
 def _bn(x, gamma, beta, mean, var, train):
     """BatchNorm over every axis of ``x`` but the channel axis 1.  Returns
     (y, batch mean, unbiased batch variance); the batch stats are None in
-    eval mode."""
+    eval mode.
+
+    Train mode in a low-precision dtype rounds where JAX does: jnp.mean and
+    jnp.var sum and divide in float32 and round once to the dtype (the
+    variance of the float32-centred input), and the unbiased rescale
+    multiplies by a numpy float64 scalar, which JAX promotes to float32, so
+    that the unbiased variance, and the running variance moved toward it,
+    come back float32.  In float32 (and float64) all of this is the plain
+    expression."""
     dims = (0,) + tuple(range(2, x.ndim))
     shape = (1, -1) + (1,) * (x.ndim - 2)
     gamma, beta = gamma.view(shape), beta.view(shape)
     if train:
-        m = x.mean(dim=dims)
-        centered = x - m.view(shape)
-        v = (centered * centered).mean(dim=dims)       # biased, as jnp.var
-        y = centered * torch.rsqrt(v.view(shape) + BN_EPS) * gamma + beta
+        wide = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(wide)
+        mf = xf.mean(dim=dims)
+        cf = xf - mf.view(shape)
+        v = (cf * cf).mean(dim=dims).to(x.dtype)      # biased, as jnp.var
+        m = mf.to(x.dtype)
+        y = (x - m.view(shape)) * torch.rsqrt(v.view(shape) + BN_EPS) \
+            * gamma + beta
         n = x.numel() // x.shape[1]
-        return y, m, v * (n / max(n - 1, 1))
+        return y, m, v.to(wide) * (n / max(n - 1, 1))
     y = ((x - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS)
          * gamma + beta)
     return y, None, None

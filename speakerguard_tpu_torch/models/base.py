@@ -116,6 +116,13 @@ def tree_rebuild(template, get, prefix=""):
     return type(template)(*out) if hasattr(template, "_fields") else tuple(out)
 
 
+def tree_map(fn, *trees):
+    """The nest shaped like ``trees[0]`` with each leaf ``fn`` of the leaves
+    at the same place in every tree."""
+    leaves = [dict(tree_leaves(t)) for t in trees]
+    return tree_rebuild(trees[0], lambda n: fn(*(d[n] for d in leaves)))
+
+
 def decide(scores: torch.Tensor, threshold: float):
     """argmax + reject threshold (reference iv_plda.py:182-194)."""
     decisions = torch.argmax(scores, dim=1).to(torch.int32)

@@ -44,6 +44,8 @@ from speakerguard_tpu_torch.models.iv_plda import IvPlda
 from speakerguard_tpu_torch.ops.chol import cholesky_rt
 from speakerguard_tpu_torch.ops.kaldi_mfcc import IV_PLDA_MFCC
 
+from test_torch_kenan import one_cpu_thread  # noqa: F401
+
 L2_RTOL = 1e-3
 # the stop_early=False configuration: lr 1e-5 leaves half the SV and CSI
 # waves unbroken, so both branches of the binary search run

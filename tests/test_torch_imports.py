@@ -55,6 +55,8 @@ SLICE_MODULES = [
     "models/defended.py",
     "ops/adpcm.py", "defenses/speech_compression.py", "ops/ssa.py",
     "attacks/kenan.py", "attacks/siren.py",
+    "models/training.py", "optim.py", "utils/audio_io.py", "utils/native.py",
+    "data/dataset.py",
 ]
 
 
