@@ -226,12 +226,47 @@ Phases, one JSON line each:
               seed=0).batches(128, shuffle=True): two batches (128, 123),
               both served by the native WAV loader (built with g++ into
               csrc/_build/), a finite loss.
- 40. kernels  one line listing every ported kernel (fused_loglike,
+ 40. kernel (case cli)  cholesky_rt at cli_iv's shapes: B = 40 (f32, and
+              bf16 input with bf16_updates) and B = 1, against its plain
+              version at the main-shape bars, timed and bounded.
+ 41. cli_xv   the evaluation workflow through the port's CLIs
+              (speakerguard_tpu_torch/cli/), in process with their default
+              -device cuda, on a world written to a temporary directory
+              (Spk10_enroll 10 speakers x 2, Spk10_test 10 x 4,
+              Spk10_imposter 5 others x 2, 3 s each, numpy seed 0):
+              xv-PLDA at full width (random_xv_plda_params(default_rng(0))
+              as a reference TDNN state dict through torch.save, PLDA,
+              mean and transform in Kaldi text): enroll, set_threshold (its
+              dict printed), specify_target_label, attack_main (-batch_size
+              40 -wav_length 48000 -task CSI PGD at the CLI's defaults),
+              attack_main again (every batch "Exists, Skip"), test_attack on
+              the adversarial directory and in imperceptibility mode; the
+              seconds of each CLI, ms per PGD iteration, peak memory, the
+              metric means; every launch count 0.  Checks: every written
+              wave within eps of its source after the int16 write-back (one
+              LSB of slack), one WAV per test utterance, attack_main's
+              success equal to an exact re-decision of its float audio with
+              the final evaluation's dither replayed, test_attack's
+              decisions equal to undithered decisions of the read-back
+              waves (so the waves where attack_main and test_attack differ
+              flip between those two; they are listed).
+ 42. cli_iv   the same sequence on iv-PLDA at D=72 (24 ceps), IV=600,
+              R=200 and C=256 (cut from 2048) from Kaldi text: cholesky_rt
+              once a model evaluation (enroll 380, set_threshold 50,
+              specify_target_label 40, attack_main 11, test_attack 40 and
+              40, the resumed attack_main 0), every other count and every
+              plain call 0.
+ 43. cli_audionet  AudioNet CSI-NE (CONV_SPEC, 10 classes) from a checkpoint
+              of the port's save_checkpoint and a label encoder:
+              attack_main FGSM, the resumed attack_main, test_attack; every
+              count 0.
+ 44. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
               launches; stats_fwd and cholesky_rt with their NES-shape
               case; fused_loglike, stats_fwd and stats_bwd with their
               defended-shape case, 64 x 150 frames; fused_loglike,
-              stats_fwd and cholesky_rt with their siren-shape case), with
+              stats_fwd and cholesky_rt with their siren-shape case;
+              cholesky_rt with its cli-shape case), with
               its launches on every slice, and the port's own kernel
               adpcm (no Pallas counterpart).
 Then the card's name and power limit, and last the line
@@ -3495,6 +3530,467 @@ def phase_train_slices(torch, wrappers, profile_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The evaluation CLIs, in process, on a world written to a temporary
+# directory (phases cli_xv, cli_iv, cli_audionet)
+# ---------------------------------------------------------------------------
+
+CLI_SPK, CLI_TEST_UTTS, CLI_IMPOSTERS, CLI_LEN = 10, 4, 5, 48000
+CLI_EPS, CLI_LSB = 0.002, 1.0 / 32768.0
+
+
+def write_cli_world(root):
+    """Spk10-shaped folders under ``root``: Spk10_enroll (10 speakers x 2
+    utterances), Spk10_test (10 x 4) and Spk10_imposter (5 other speakers x
+    2), 3 s each, from numpy seed 0.  A speaker's utterances share one base
+    wave plus their own noise, so that enrollment has something to find."""
+    from speakerguard_tpu_torch.utils.audio_io import write_wav
+    rng = np.random.default_rng(0)
+    voices = rng.uniform(-0.3, 0.3, (CLI_SPK + CLI_IMPOSTERS, CLI_LEN))
+    for name, speakers, utts in (
+            ("Spk10_enroll", range(CLI_SPK), 2),
+            ("Spk10_test", range(CLI_SPK), CLI_TEST_UTTS),
+            ("Spk10_imposter", range(CLI_SPK, CLI_SPK + CLI_IMPOSTERS), 2)):
+        for s in speakers:
+            spk = f"spk{s}" if s < CLI_SPK else f"imp{s - CLI_SPK}"
+            d = os.path.join(root, name, spk)
+            os.makedirs(d)
+            for u in range(utts):
+                wave = voices[s] + 0.05 * rng.standard_normal(CLI_LEN)
+                write_wav(os.path.join(d, f"{spk}-{u}.wav"),
+                          np.clip(wave, -0.99, 0.99).astype(np.float32))
+
+
+def _row(values):
+    return " ".join(map("{:.6f}".format, np.ravel(values)))
+
+
+def write_kaldi_plda(d, plda, emb_mean, transform_mat):
+    """plda.txt, mean.vec and transform.txt in the Kaldi text layouts the
+    port's utils/kaldi_io.py parses (reference model/_iv_plda/plda.py:27-51,
+    model/utils.py:50-80).  Returns their paths."""
+    mean, transform, psi = (t.cpu().double().numpy() for t in plda)
+    paths = [os.path.join(d, n) for n in ("plda.txt", "mean.vec",
+                                          "transform.txt")]
+    with open(paths[0], "w") as f:
+        f.write(f"<Plda> [ {_row(mean)} ]\n[\n")
+        for r in transform:
+            f.write(f"r  {_row(r)} x\n")
+        f.write(f"[ {_row(psi)} ]\n")
+    with open(paths[1], "w") as f:
+        f.write(f"[ {_row(emb_mean.cpu().double().numpy())} ]\n")
+    mat = transform_mat.cpu().double().numpy()
+    with open(paths[2], "w") as f:
+        f.write("[\n")
+        for i, r in enumerate(mat):
+            f.write(f" {_row(r)} {']' if i == len(mat) - 1 else ''}\n")
+    return paths
+
+
+def write_kaldi_iv(d, params):
+    """final_ubm.txt (the full-covariance UBM) and final_ie.txt (the
+    i-vector extractor) of ``params`` in the Kaldi text layouts the port
+    parses (reference gmm.py:31-81, ivector_extract.py:28-70), plus the
+    PLDA files.  Returns the five paths in CLI order (-gmm -extractor
+    -plda -mean -transform)."""
+    g, e = params.fgmm, params.extractor
+    invcov = g.invcovars.cpu().double().numpy()
+    c, dim = invcov.shape[:2]
+    gmm = os.path.join(d, "final_ubm.txt")
+    with open(gmm, "w") as f:
+        f.write("<DiagGMM>\n")
+        f.write(f"<GCONSTS> [ {_row(g.gconsts.cpu().double().numpy())} ]\n")
+        f.write(f"<WEIGHTS> [ {_row(g.weights.cpu().double().numpy())} ]\n")
+        f.write("<MEANS_INVCOVARS> [\n")
+        for r in g.means_invcovars.cpu().double().numpy():
+            f.write(f"r  {_row(r)} x\n")
+        f.write("<INV_COVARS> [\n")
+        for i in range(c):
+            for j in range(dim):
+                f.write(f"{_row(invcov[i, j, :j + 1])} \n")
+            f.write(" ]\n")
+        f.write("</DiagGMM>\n")
+    m = e.extractor_matrix.cpu().double().numpy()
+    sig = e.sigma_inv.cpu().double().numpy()
+    ie = os.path.join(d, "final_ie.txt")
+    with open(ie, "w") as f:
+        f.write(f"<w_vec> [ {_row(np.ones(c))} ]\n<M> [\n")
+        for i in range(c):  # savetxt formats ~3x faster than _row
+            np.savetxt(f, m[i, :-1], fmt="%.6f")
+            f.write(f"{_row(m[i, -1])} ]\n [\n")
+        f.write("<SigmaInv> [\n")
+        for i in range(c):
+            for j in range(dim):
+                f.write(f"{_row(sig[i, j, :j + 1])}\n")
+            f.write(" ]\n")
+        f.write(f"<IvectorOffset> {float(e.offset):.6f}\n")
+    return [gmm, ie, *write_kaldi_plda(d, params.plda, params.emb_mean,
+                                       params.transform_mat)]
+
+
+def write_tdnn_state(path, tdnn):
+    """The reference TDNN checkpoint (its state-dict names; the port keeps
+    its layouts) of ``tdnn`` through torch.save."""
+    import torch
+    state = {}
+    for i in range(5):
+        state[f"tdnn{i + 1}.weight"] = tdnn.conv_w[i]
+        state[f"tdnn{i + 1}.bias"] = tdnn.conv_b[i]
+        state[f"bn_tdnn{i + 1}.running_mean"] = tdnn.bn_tdnn[i].mean
+        state[f"bn_tdnn{i + 1}.running_var"] = tdnn.bn_tdnn[i].var
+    for n in ("fc1", "fc2", "fc3"):
+        state[f"{n}.weight"] = getattr(tdnn, f"{n}_w")
+        state[f"{n}.bias"] = getattr(tdnn, f"{n}_b")
+    for n in ("bn_fc1", "bn_fc2"):
+        state[f"{n}.running_mean"] = getattr(tdnn, n).mean
+        state[f"{n}.running_var"] = getattr(tdnn, n).var
+    torch.save({k: v.detach().cpu() for k, v in state.items()}, path)
+
+
+def _cli_call(torch, wrappers, mod, argv):
+    """``mod.main(mod.parse_args(argv))`` with its standard output
+    captured: (result, output, seconds, launch counts, plain calls), the
+    counts set to 0 just before and read just after."""
+    import contextlib
+    import io
+    args = mod.parse_args(argv)
+    for w in wrappers.values():
+        w.reset_counts()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = mod.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (result, out.getvalue(), seconds,
+            {k: w.launches for k, w in wrappers.items()},
+            {k: w.plain_calls for k, w in wrappers.items()})
+
+
+def recording_attacker(attack_main, torch, seed):
+    """Wrap ``attack_main.make_attacker`` so that each attack keeps its
+    float adversarial audio and the dither of its final evaluation.  The
+    dither comes through the PGD hook from a generator seeded as the CLI
+    seeds the batch's own (``seeded_generator(device, seed, index)``), in
+    the order the attack draws it, so the run draws what the CLI draws
+    unhooked.  Returns (the list of (names order, adver, final dither or
+    None) per batch, the restore function)."""
+    from speakerguard_tpu_torch.cli.common import seeded_generator
+    batches = []
+    orig = attack_main.make_attacker
+
+    def make(args, model):
+        atk = orig(args, model)
+        attack = atk.attack
+
+        def attack_rec(x, y, rng=None):
+            gen = seeded_generator(x.device, seed, args.start + len(batches))
+            final = []
+
+            def dither_fn(restart, it, e, shape):
+                noise = torch.randn(shape, generator=gen, device=x.device)
+                if it == atk.max_iter:
+                    final.append(noise)
+                return noise
+            atk.dither_fn = dither_fn
+            adver, success = attack(x, y, rng=rng)
+            batches.append((adver, final[-1] if final else None))
+            return adver, success
+        atk.attack = attack_rec
+        return atk
+    attack_main.make_attacker = make
+    return batches, lambda: setattr(attack_main, "make_attacker", orig)
+
+
+def cli_cross_check(torch, model, spk_ids, names, batches, attack_res,
+                    test_res, adver_dir, data_root):
+    """The checks of an attack_main run and test_attack's read of it:
+    every adversarial wave within eps of its source after the int16
+    write-back (one LSB of slack); one WAV per test utterance; attack_main's
+    success of each wave equal to an exact re-decision of its float audio
+    with its final evaluation's dither replayed, and test_attack's
+    decision equal to an undithered decision of the read-back wave.  So
+    where the two disagree on a wave, its decision flips between the
+    attack's final (dithered) evaluation and the undithered decision of
+    the int16 wave; those waves are listed.  Returns the record."""
+    from speakerguard_tpu_torch.utils.audio_io import read_wav
+    written = sorted(os.path.relpath(os.path.join(r, f), adver_dir)
+                     for r, _, fs in os.walk(adver_dir) for f in fs
+                     if f.endswith(".wav"))
+    want_tree = sorted(os.path.join(n.split("-")[0], n + ".wav")
+                       for n in names)
+    src_dir = os.path.join(data_root, "Spk10_test")
+    dev_eps = max(float(np.abs(read_wav(os.path.join(adver_dir, rel))
+                               - read_wav(os.path.join(src_dir, rel))).max())
+                  for rel in written)
+    true = {n: spk_ids.index(n.split("-")[0]) for n in names}
+    order = sorted(names)  # the dataset's order: speaker dirs, then files
+    replay, readback = {}, {}
+    with torch.no_grad():
+        start = 0
+        for adver, dither in batches:
+            b = adver.shape[0]
+            batch_names = order[start:start + b]
+            start += b
+            rng = None if dither is None else (lambda shape, d=dither: d)
+            d, _ = model.make_decision(adver.reshape(b, -1), rng=rng)
+            replay.update(zip(batch_names, d.tolist()))
+        for n in names:
+            wav = read_wav(os.path.join(adver_dir, n.split("-")[0],
+                                        n + ".wav"))
+            d, _ = model.make_decision(torch.tensor(wav[None],
+                                                    device=model.device))
+            readback[n] = int(d[0])
+    attack_ok = {n: (replay[n] != true[n]) == attack_res["success"][n]
+                 for n in names}
+    readback_ok = {n: readback[n] == test_res["decisions"][n]
+                   for n in names}
+    differ = [n for n in names if attack_res["success"][n]
+              != (test_res["decisions"][n] != true[n])]
+    return {"tree_ok": written == want_tree, "waves": len(written),
+            "max_abs_dev": dev_eps,
+            "within_eps": dev_eps <= CLI_EPS + CLI_LSB + 1e-7,
+            "attack_success_replayed": all(attack_ok.values()),
+            "test_attack_readback": all(readback_ok.values()),
+            "differ": differ,
+            "differ_flip": {n: {"attack_final": replay[n],
+                                "readback": readback[n], "true": true[n]}
+                            for n in differ}}
+
+
+def phase_cli_kernels(torch, chol):
+    """cholesky_rt at the shapes cli_iv gives it: B = 40 matrices of 600 x
+    600 (attack_main's batch: f32 on its exact evaluations, bf16 input with
+    bf16_updates on its fast iterations) and B = 1 (every single-utterance
+    evaluation of the other CLIs), each against its plain version at the
+    main-shape bars (blocked residual and plain error at 1e-5), with
+    CUDA-event ms and the bound.  Returns the B = 40 f32 record."""
+    n, tol, out = 600, 1e-5, None
+    for case, b, dtype, upd in (
+            ("cli_b40_f32", 40, torch.float32, False),
+            ("cli_b40_bf16_input_updates", 40, torch.bfloat16, True),
+            ("cli_b1_f32", 1, torch.float32, False)):
+        a = spd_batch(torch, "dominant", b, n, seed=n, dtype=dtype)
+        got = chol.cholesky_rt(a, bf16_updates=upd)
+        torch.cuda.synchronize()
+        want = chol.cholesky_rt_plain(a, bf16_updates=upd)
+        abs_err = float((got - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        lower_zero = bool(torch.all(torch.tril(got, -1) == 0))
+        resid = chol.blocked_residual(a, got, upd)
+        rec = {"phase": "kernel", "kernel": "cholesky_rt", "case": case,
+               "input": "dominant", "shape": [b, n, n],
+               "dtype": str(dtype), "bf16_updates": upd,
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "tolerance_vs_plain": tol, "blocked_residual": resid,
+               "tolerance_residual": tol, "strictly_lower_zero": lower_zero,
+               "ms": cuda_ms(lambda: chol.cholesky_rt(a, upd), 3, 20),
+               "plain_ms": cuda_ms(lambda: chol.cholesky_rt_plain(a, upd),
+                                   1, 2),
+               "library_ms": cuda_ms(lambda: torch.linalg.cholesky(
+                   a.float(), upper=True), 3, 20)}
+        rec["bound_ms"], rec["bound_by"] = chol_bound_ms(
+            b, n, a.element_size(), upd, chol.NB)
+        emit(rec)
+        if not (lower_zero and resid <= tol and rel_err <= tol):
+            raise RuntimeError(f"cholesky_rt at the cli_iv shape: {rec}")
+        out = out or rec
+        del a, got, want
+    return out
+
+
+def run_cli_phase(torch, name, wrappers, system, model_args, attack,
+                  expected, root, full=True):
+    """One system through the five CLIs (``full``) or attack_main and
+    test_attack alone, on the world under ``root``: enroll, set_threshold
+    (its dict printed), specify_target_label (random), attack_main
+    (-batch_size 40 -wav_length 48000 -task CSI, ``attack``), attack_main
+    again (every batch must print "Exists, Skip"), test_attack on the
+    adversarial directory, then (``full``) in imperceptibility mode
+    against Spk10_test.  ``expected`` maps each CLI to its launch counts
+    (every other count and every plain call 0).  Returns attack_main's
+    launch counts."""
+    from speakerguard_tpu_torch.cli import (attack_main, enroll,
+                                            set_threshold,
+                                            specify_target_label,
+                                            test_attack)
+    from speakerguard_tpu_torch.cli.common import build_model
+    data = os.path.join(root, "data")
+    mdir = os.path.join(root, f"model_{name}")
+    mf = os.path.join(mdir, system, f"speaker_model_{system}")
+    model_file = ["-model_file", mf] if full else []
+    adv = os.path.join(root, f"adver_{name}")
+    names = sorted(os.path.splitext(f)[0]
+                   for _, _, fs in os.walk(os.path.join(data, "Spk10_test"))
+                   for f in fs)
+    rec = {"phase": name, "system": system, "utterances": len(names),
+           "samples": CLI_LEN, "attack": attack, "cli": {}}
+    calls = []
+    if full:
+        calls += [
+            ("enroll", enroll, ["-model_dir", mdir, "-root", data, system]
+             + model_args),
+            ("set_threshold", set_threshold, ["-root", data, system]
+             + model_args + model_file),
+            ("specify_target_label", specify_target_label, [
+                "-root", data, "-name", "Spk10_test", "-save_path",
+                os.path.join(root, f"targets_{name}.pkl"), system]
+             + model_args + model_file)]
+    attack_argv = ["-root", data, "-name", "Spk10_test", "-des", adv,
+                   "-batch_size", "40", "-wav_length", str(CLI_LEN),
+                   "-task", "CSI", system] + model_args + model_file + attack
+    calls += [("attack_main", attack_main, attack_argv),
+              ("attack_main_resume", attack_main, attack_argv),
+              ("test_attack", test_attack, ["-root", root, "-name",
+                                            os.path.basename(adv), system]
+               + model_args + model_file)]
+    if full:
+        calls.append(("test_attack_imperceptibility", test_attack, [
+            "-root", root, "-name", os.path.basename(adv), "-root_ori",
+            data, "-name_ori", "Spk10_test", system] + model_args
+            + model_file))
+    results, bad = {}, {}
+    for cli, mod, argv in calls:
+        restore = None
+        if cli == "attack_main":
+            batches, restore = recording_attacker(attack_main, torch, 0)
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            res, text, secs, launches, plain = _cli_call(torch, wrappers,
+                                                         mod, argv)
+        finally:
+            if restore is not None:
+                restore()
+        results[cli] = res
+        entry = {"seconds": secs, "launches": launches,
+                 "plain_calls": plain}
+        want = {k: expected.get(cli, {}).get(k, 0) for k in wrappers}
+        if launches != want or any(plain.values()):
+            bad[cli] = {"launches": launches, "expected": want,
+                        "plain_calls": plain}
+        if cli == "set_threshold":
+            entry["result"] = res
+            print(json.dumps({"phase": name, "set_threshold": res}),
+                  flush=True)
+        if cli == "attack_main":
+            entry.update(success_rate=res["success_rate"],
+                         attack_s=res["attack_s"],
+                         peak_mem_gib=torch.cuda.max_memory_allocated()
+                         / 2 ** 30)
+            iters = int(attack[attack.index("-max_iter") + 1]) if (
+                "-max_iter" in attack) else (10 if attack[0] == "PGD" else 1)
+            entry["iterations"] = iters
+            entry["ms_per_iter"] = res["attack_s"] * 1e3 / iters
+            attack_launches = launches
+        if cli == "attack_main_resume":
+            entry["skips"] = text.count("Exists, Skip")
+            if entry["skips"] != 1 or res["success"]:
+                bad[cli] = {"skips": entry["skips"]}
+        if cli.startswith("test_attack"):
+            entry.update(acc=res["acc"], untargeted_asr=res["untargeted_asr"])
+            if res["imperceptibility"] is not None:
+                entry["imperceptibility_means"] = dict(zip(
+                    ("L2", "L0", "L1", "Linf", "SNR", "PESQ", "STOI"),
+                    res["imperceptibility"]))
+        rec["cli"][cli] = entry
+    args = attack_main.parse_args(attack_argv)
+    base, model, _ = build_model(args)
+    rec["check"] = cli_cross_check(torch, model, base.spk_ids, names,
+                                   batches, results["attack_main"],
+                                   results["test_attack"], adv, data)
+    rec["attack_success_rate"] = results["attack_main"]["success_rate"]
+    rec["test_attack_untargeted_asr"] = results["test_attack"][
+        "untargeted_asr"]
+    emit(rec)
+    chk = rec["check"]
+    ok = (chk["tree_ok"] and chk["within_eps"]
+          and chk["attack_success_replayed"] and chk["test_attack_readback"]
+          and not bad)
+    if not ok:
+        raise RuntimeError(f"{name} failed: {bad or chk}")
+    return attack_launches
+
+
+def phase_cli(torch, wrappers):
+    """The evaluation workflow through the port's CLIs, in process with
+    their default -device cuda, on one world written to a temporary
+    directory: cli_xv (xv-PLDA at full width from a reference TDNN state
+    dict and Kaldi text), cli_iv (iv-PLDA at D=72, IV=600, R=200 and C=256
+    from Kaldi text: cholesky_rt on every model evaluation), cli_audionet
+    (AudioNet CSI-NE from the port's checkpoint: FGSM).  Returns {phase:
+    attack_main's launch counts}."""
+    import tempfile
+    from speakerguard_tpu_torch.models.audionet import init_audionet
+    from speakerguard_tpu_torch.models.iv_plda import random_iv_plda_params
+    from speakerguard_tpu_torch.models.training import save_checkpoint
+    from speakerguard_tpu_torch.models.xv_plda import random_xv_plda_params
+    from speakerguard_tpu_torch.utils.kaldi_io import write_label_encoder
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_cli_world(os.path.join(root, "data"))
+        world_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        xv = random_xv_plda_params(np.random.default_rng(0), device="cuda")
+        ckpt = os.path.join(root, "xvecTDNN.ckpt")
+        write_tdnn_state(ckpt, xv.tdnn)
+        xv_files = write_kaldi_plda(root, xv.plda, xv.emb_mean,
+                                    xv.transform_mat)
+        del xv
+        emit({"phase": "cli_setup", "world_s": world_s,
+              "xv_write_s": time.perf_counter() - t0})
+        # an utterance a model evaluation: 20 enrollment embeddings and 10
+        # x 36 non-target scores; 40 test + 10 imposter decisions; 40
+        # decisions; PGD-10 (each iteration and the final evaluation); 40
+        # decisions, twice
+        evals = {"enroll": 2 * CLI_SPK + CLI_SPK * (CLI_SPK - 1)
+                 * CLI_TEST_UTTS,
+                 "set_threshold": CLI_SPK * CLI_TEST_UTTS + 2 * CLI_IMPOSTERS,
+                 "specify_target_label": CLI_SPK * CLI_TEST_UTTS,
+                 "attack_main": 10 + 1,
+                 "test_attack": CLI_SPK * CLI_TEST_UTTS,
+                 "test_attack_imperceptibility": CLI_SPK * CLI_TEST_UTTS}
+        out["cli_xv"] = run_cli_phase(
+            torch, "cli_xv", wrappers, "xv_plda",
+            ["-extractor", ckpt, "-plda", xv_files[0], "-mean", xv_files[1],
+             "-transform", xv_files[2]], ["PGD"], {}, root)
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        iv = random_iv_plda_params(np.random.default_rng(0), 256, 72, 600,
+                                   200, device="cuda")
+        iv_dir = os.path.join(root, "iv")
+        os.makedirs(iv_dir)
+        iv_files = write_kaldi_iv(iv_dir, iv)
+        emit({"phase": "cli_iv_setup", "C": iv.fgmm.num_gaussians,
+              "D": iv.fgmm.dim, "IV": int(iv.extractor.extractor_matrix
+                                          .shape[2]),
+              "R": iv.plda.dim, "write_s": time.perf_counter() - t0,
+              "text_mb": sum(os.path.getsize(p) for p in iv_files) / 1e6})
+        del iv
+        out["cli_iv"] = run_cli_phase(
+            torch, "cli_iv", wrappers, "iv_plda",
+            [a for flag, p in zip(("-gmm", "-extractor", "-plda", "-mean",
+                                   "-transform"), iv_files)
+             for a in (flag, p)], ["PGD"],
+            {cli: {"cholesky_rt": n} for cli, n in evals.items()}, root)
+        torch.cuda.empty_cache()
+
+        params, state = init_audionet(np.random.default_rng(0), CLI_SPK,
+                                      device="cuda")
+        an_ckpt = os.path.join(root, "audionet.ckpt")
+        save_checkpoint(an_ckpt, params, state)
+        enc = os.path.join(root, "label_encoder.txt")
+        write_label_encoder(enc, [f"spk{i}" for i in range(CLI_SPK)])
+        out["cli_audionet"] = run_cli_phase(
+            torch, "cli_audionet", wrappers, "audionet_csine",
+            ["-extractor", an_ckpt, "-label_encoder", enc],
+            ["FGSM"], {}, root, full=False)
+    return out
+
+
 def phase_rounds(torch, models, x, rounds, iters=10):
     """ms per PGD iteration of the given models, ``rounds`` times each, the
     order rotated every round so that no model always runs first."""
@@ -3658,6 +4154,9 @@ def main(argv):
     launches.update(phase_slice15(torch, wrappers))
     torch.cuda.empty_cache()
     launches.update(phase_train_slices(torch, wrappers, profile_dir))
+    torch.cuda.empty_cache()
+    cli_rec = phase_cli_kernels(torch, chol)
+    launches.update(phase_cli(torch, wrappers))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"
@@ -3726,6 +4225,11 @@ def main(argv):
                 "bound_by", "library_ms")}
             k["siren_shape"]["launches"] = launches["slice_siren_iv"][
                 k["name"]]
+    chol_k = next(k for k in kernels if k["name"] == "cholesky_rt")
+    chol_k["cli_shape"] = {key: cli_rec[key] for key in (
+        "case", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms")}
+    chol_k["cli_shape"]["launches"] = launches["cli_iv"]["cholesky_rt"]
     fwd["siren_shape"]["launch_ms"] = {
         k: v["ms"] for k, v in siren_launch_recs.items() if "ms" in v}
     # the port's own kernel: no Pallas kernel stands behind it

@@ -6,12 +6,18 @@ the shared ``torch.Generator``), takes the input gradient of the summed
 per-sample loss, and the repeats' scores, losses and gradients are averaged;
 the per-repeat decisions are returned for majority voting.
 
-The `score_fn(x, rng) -> (B, S)` closure is the only model contract.
+The `score_fn(x, rng) -> (B, S)` closure is the only model contract.  The
+``rng`` a run gets is handed to every repeat, or, when it is a list, its
+``e``-th entry to repeat ``e`` (an attack's per-repeat dither draws).
 """
 
 import torch
 
 from speakerguard_tpu_torch.models.base import decide
+
+
+def _repeat_rng(rng, e):
+    return rng[e] if isinstance(rng, list) else rng
 
 
 def eot(score_fn, loss_fn, threshold: float, eot_size: int = 1):
@@ -20,10 +26,10 @@ def eot(score_fn, loss_fn, threshold: float, eot_size: int = 1):
 
     def run(x, y, rng):
         scores_all, loss_all, grad_all, dec_all = [], [], [], []
-        for _ in range(eot_size):
+        for e in range(eot_size):
             xx = x.detach().requires_grad_(True)
             with torch.enable_grad():
-                scores = score_fn(xx, rng)
+                scores = score_fn(xx, _repeat_rng(rng, e))
                 loss = loss_fn(scores, y)
                 (grad,) = torch.autograd.grad(loss.sum(), xx)
             scores, loss = scores.detach(), loss.detach()
@@ -43,8 +49,8 @@ def eot_no_grad(score_fn, loss_fn, threshold: float, eot_size: int = 1):
     def run(x, y, rng):
         scores_all, loss_all, dec_all = [], [], []
         with torch.no_grad():
-            for _ in range(eot_size):
-                scores = score_fn(x, rng)
+            for e in range(eot_size):
+                scores = score_fn(x, _repeat_rng(rng, e))
                 scores_all.append(scores)
                 loss_all.append(loss_fn(scores, y))
                 dec_all.append(decide(scores, threshold)[0])

@@ -10,6 +10,28 @@ which alone decides success, is exact (reference FGSM.py:44-47).
 
 Class relationships preserved: FGSM == PGD with max_iter=1, step=epsilon,
 global clip bounds; CWinf == PGD with Margin loss forced.
+
+Randomness: by default the attack's torch.Generator draws the restart's
+init noise and the model's dither, in call order.  Two hooks let a caller
+hand the draws in instead (the CPU tests pass the JAX package's, whose key
+schedule is ``split(rng)`` -> (init key, loop key) per restart, the loop
+key split into (max_iter + 1) x EOT_size dither keys):
+
+  init_noise_fn(restart, shape)    the noise added to x at the start of
+                                   restart ``restart``: uniform in
+                                   [-epsilon, epsilon) (JAX's
+                                   ``uniform(init_key, shape, -eps, eps)``).
+  dither_fn(restart, it, e, shape) the frontend's standard normal dither of
+                                   iteration ``it`` (``it == max_iter`` is
+                                   the final evaluation) and EOT repeat
+                                   ``e`` (JAX's ``normal(keys[it, e],
+                                   frames.shape)``).
+
+Each returns a float32 array or tensor of ``shape``.  The restart index is 0
+without restarts.  FGSM and CWinf take them as attributes.  With
+``batch_size`` chunking each chunk calls them again with the same indices.
+``dither_fn`` reaches the base model's frontend; a defended model with
+defenses has no dithered frontend and rejects it.
 """
 
 import torch
@@ -25,10 +47,17 @@ class PGD(Attack):
 
     def __init__(self, model, task="CSI", epsilon=0.002, step_size=0.0004,
                  max_iter=10, num_random_init=0, loss="Entropy",
-                 targeted=False, batch_size=None, EOT_size=1):
+                 targeted=False, batch_size=None, EOT_size=1,
+                 init_noise_fn=None, dither_fn=None):
         # batch_size: optional memory knob chunking the input like the
         # reference's attack() loops; None = the whole input in one batch.
         # The EOT_size repeats run one after another (adaptive/eot.py).
+        # init_noise_fn, dither_fn: the draw hooks (module docstring).
+        if dither_fn is not None and getattr(model, "num_defenses", 0):
+            raise ValueError("dither_fn: a defended model's frontend has no "
+                             "dither")
+        self.init_noise_fn = init_noise_fn
+        self.dither_fn = dither_fn
         self.batch_size = batch_size
         self.model = model
         self.task = task
@@ -51,7 +80,27 @@ class PGD(Attack):
         upper = torch.clamp(x + self.epsilon, max=1.0)
         return lower, upper
 
-    def _single(self, x, y, gen, do_init_noise):
+    def _rngs(self, gen, restart, it):
+        """What iteration ``it``'s EOT repeats draw their dither from: the
+        generator, or one draw function each from ``dither_fn``."""
+        if self.dither_fn is None:
+            return gen
+        return [lambda shape, e=e: self.dither_fn(restart, it, e, shape)
+                for e in range(self.EOT_size)]
+
+    def _init_noise(self, x, gen, restart):
+        if self.init_noise_fn is None:
+            noise = torch.rand(x.shape, generator=gen, device=x.device,
+                               dtype=x.dtype)
+            return (2.0 * noise - 1.0) * self.epsilon
+        noise = torch.as_tensor(self.init_noise_fn(restart, tuple(x.shape)),
+                                dtype=x.dtype, device=x.device)
+        if noise.shape != x.shape:
+            raise ValueError(f"init noise of shape {tuple(noise.shape)}, "
+                             f"expected {tuple(x.shape)}")
+        return noise
+
+    def _single(self, x, y, gen, do_init_noise, restart=0):
         """One restart: bounds, optional init noise, the iterations, the
         exact final evaluation."""
         model = self.model
@@ -65,14 +114,15 @@ class PGD(Attack):
         xx = x
         if do_init_noise:
             # the reference does NOT clip the init point (PGD.py:59-61)
-            noise = torch.rand(x.shape, generator=gen, device=x.device,
-                               dtype=x.dtype)
-            xx = x + (2.0 * noise - 1.0) * self.epsilon
-        for _ in range(self.max_iter):
-            _, _, grad, _ = eot_run(xx, y, gen)
+            xx = x + self._init_noise(x, gen, restart)
+        for it in range(self.max_iter):
+            _, _, grad, _ = eot_run(xx, y, self._rngs(gen, restart, it))
             xx = xx + self.step_size * torch.sign(grad) * self.grad_sign
             xx = torch.clamp(xx, lower, upper)
-        scores, loss, decisions = eot_ng(xx, y, gen)
+        # the final evaluation draws as EOT repeat 0 of iteration max_iter
+        scores, loss, decisions = eot_ng(xx, y,
+                                         self._rngs(gen, restart,
+                                                    self.max_iter))
         predict = majority_vote(decisions, scores.shape[-1])
         return xx, predict, loss
 
@@ -93,8 +143,8 @@ class PGD(Attack):
             # best whole-batch success rate over restarts; strict '>' keeps
             # the earliest restart on ties (reference PGD.py:54-77)
             best_rate, best_x, best_pred = -1.0, None, None
-            for _ in range(self.num_random_init):
-                x_adv, predict, _ = self._single(x, y, gen, True)
+            for r in range(self.num_random_init):
+                x_adv, predict, _ = self._single(x, y, gen, True, r)
                 rate = float(compare(y, predict, self.targeted).float()
                              .mean())
                 if rate > best_rate:

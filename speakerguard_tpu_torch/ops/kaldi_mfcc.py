@@ -302,12 +302,28 @@ class _Power(torch.autograd.Function):
         return 2.0 * (a - b), None, None, None
 
 
+def dither_noise(rng, shape, device) -> torch.Tensor:
+    """Standard normal float32 noise of ``shape`` for the dither: drawn from
+    ``rng`` when it is a torch.Generator, else ``rng(shape)``, a caller's
+    draw function (the CPU tests pass the JAX package's draws in)."""
+    if isinstance(rng, torch.Generator):
+        return torch.randn(shape, generator=rng, device=device,
+                           dtype=torch.float32)
+    noise = torch.as_tensor(rng(tuple(shape)), dtype=torch.float32,
+                            device=device)
+    if tuple(noise.shape) != tuple(shape):
+        raise ValueError(f"dither draw of shape {tuple(noise.shape)}, "
+                         f"expected {tuple(shape)}")
+    return noise
+
+
 def kaldi_mfcc(wav: torch.Tensor, cfg: MfccConfig = IV_PLDA_MFCC,
-               rng: torch.Generator | None = None,
-               fast_dft: bool = False) -> torch.Tensor:
+               rng=None, fast_dft: bool = False) -> torch.Tensor:
     """Batched Kaldi MFCC.  wav: (B, L) float32 in the *origin* (int16)
-    domain.  Returns (B, T, num_ceps).  ``fast_dft``: the DFT matmuls in
-    the fast dtype (attack-gradient graphs only)."""
+    domain.  Returns (B, T, num_ceps).  ``rng``: None (no dither), a
+    torch.Generator or a draw function ``draw(shape)`` (``dither_noise``).
+    ``fast_dft``: the DFT matmuls in the fast dtype (attack-gradient graphs
+    only)."""
     if wav.ndim != 2:
         raise ValueError("expect (B, L)")
     dev = wav.device
@@ -315,8 +331,7 @@ def kaldi_mfcc(wav: torch.Tensor, cfg: MfccConfig = IV_PLDA_MFCC,
     frames = frame_signal(wav.to(torch.float32), cfg)  # (B, T, W)
 
     if rng is not None and cfg.dither != 0.0:
-        frames = frames + cfg.dither * torch.randn(
-            frames.shape, generator=rng, device=dev, dtype=frames.dtype)
+        frames = frames + cfg.dither * dither_noise(rng, frames.shape, dev)
 
     if cfg.remove_dc_offset:
         frames = frames - torch.mean(frames, dim=-1, keepdim=True)

@@ -57,6 +57,10 @@ SLICE_MODULES = [
     "attacks/kenan.py", "attacks/siren.py",
     "models/training.py", "optim.py", "utils/audio_io.py", "utils/native.py",
     "data/dataset.py",
+    "metrics/__init__.py", "metrics/metric.py", "metrics/pesq_native.py",
+    "cli/__init__.py", "cli/common.py", "cli/enroll.py",
+    "cli/set_threshold.py", "cli/specify_target_label.py",
+    "cli/attack_main.py", "cli/test_attack.py",
 ]
 
 
