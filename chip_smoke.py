@@ -260,7 +260,34 @@ Phases, one JSON line each:
               of the port's save_checkpoint and a label encoder:
               attack_main FGSM, the resumed attack_main, test_attack; every
               count 0.
- 44. kernels  one line listing every ported kernel (fused_loglike,
+ 44. train_cli_natural  the port's natural_train CLI in process (default
+              -device cuda) at the JAX bench's point over slice_train_data's
+              251 WAVs (batches of 128 and 123) and a Spk251_test tree of
+              the same speakers x 3 s: 2 epochs with validation, a resume
+              of 1 epoch from the final pickle (-start_epoch 2), 1 epoch
+              with -ckpt_backend dcp and 1 more resumed from its directory;
+              each run's seconds from a StageTimer and ms a step (the
+              median of every step after the first epoch, whose two
+              steps autotune cuDNN for their shapes); the loss falls over the first run,
+              the checkpoints' epochs and the resumed logs continue the
+              count, the dcp directories exist; every count 0.
+ 45. train_cli_adver  adver_train, PGD-10 at ratio 0.5, 1 epoch,
+              -evaluate_adver; each step's seconds (each its shape's
+              first, cuDNN autotuning included); every count 0.
+ 46. dp_one_card  parallel/ on one card (the collective code path, not
+              scaling): two ranks spawned on cuda:0 with gloo run
+              parallel/rank_checks.py, the DP natural step at global batch
+              128 (64 a rank) in float32 and in float64, and PGD-10 with
+              mesh= on iv-PLDA at full width, FastPath(), batch 64 (the
+              shared top-K all-reduced, cholesky_rt 11 on each rank); the
+              float32 DP step again on one rank under nccl; each held
+              against this process's run without a group (the step at the
+              CPU tests' bars, every parameter in float64, those after
+              the last max-pool in float32, where a near tie in an
+              earlier pool window can flip; the success list and the
+              top-K selection equal).  --profile DIR: rank 0 traces one
+              DP step into DIR/dp_trace (utils/profiling.trace).
+ 47. kernels  one line listing every ported kernel (fused_loglike,
               stats_fwd and stats_bwd with the time of each of their
               launches; stats_fwd and cholesky_rt with their NES-shape
               case; fused_loglike, stats_fwd and stats_bwd with their
@@ -3991,6 +4018,266 @@ def phase_cli(torch, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The training CLIs and data parallelism on one card (phases
+# train_cli_natural, train_cli_adver, dp_one_card)
+# ---------------------------------------------------------------------------
+
+def write_train_world(root):
+    """slice_train_data's Spk251_train tree (251 speakers x 1 WAV of 6 s,
+    numpy seed 3) and a Spk251_test tree for validation (the same speakers
+    x 1 WAV of 3 s, seed 4) under ``root``."""
+    from speakerguard_tpu_torch.utils.audio_io import write_wav
+    for name, length, seed in (("Spk251_train", 96000, 3),
+                               ("Spk251_test", 48000, 4)):
+        rng = np.random.default_rng(seed)
+        for i in range(TRAIN_CLASSES):
+            d = os.path.join(root, name, f"spk{i:03d}")
+            os.makedirs(d)
+            write_wav(os.path.join(d, "u0.wav"), (rng.standard_normal(
+                length) * 0.1).astype(np.float32))
+
+
+def phase_train_clis(torch, wrappers):
+    """train_cli_natural and train_cli_adver: the port's training CLIs in
+    process with their default -device cuda at the JAX bench's point (251
+    classes, batch 128 of 80,000 samples) over write_train_world's tree.
+    natural_train: 2 epochs (batches of 128 and 123) with validation on
+    the 251 test waves, then one epoch resumed from its final pickle
+    (-start_epoch 2), then one epoch with -ckpt_backend dcp and one more
+    resumed from its directory; adver_train: PGD-10, ratio 0.5, 1 epoch,
+    -evaluate_adver.  A StageTimer times each run.  Checks: the batch sizes,
+    finite losses that fall over the natural run, the checkpoints' epochs
+    (read back by the port), the resumed runs' epochs in their logs, the
+    dcp directories, every launch count and plain call 0.  Returns {phase:
+    launch counts}."""
+    import tempfile
+    from speakerguard_tpu_torch.cli import adver_train, natural_train
+    from speakerguard_tpu_torch.models.training import load_checkpoint
+    from speakerguard_tpu_torch.utils.profiling import StageTimer
+    timer = StageTimer()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        with timer.stage("write_world"):
+            write_train_world(root)
+        enc = os.path.join(root, "label_encoder.txt")
+        common = ["-root", root, "-label_encoder", enc, "-batch_size",
+                  str(TRAIN_BATCH), "-wav_length", str(TRAIN_LEN)]
+        base = os.path.join(root, "model_file", "audionet-natural")
+        dbase = os.path.join(root, "model_file", "audionet-natural-dcp")
+        runs = {}
+        for stage, argv in (
+                ("natural_2_epochs", ["-num_epoches", "2", "-model_ckpt",
+                                      base]),
+                ("natural_resume_pickle", [
+                    "-num_epoches", "1", "-start_epoch", "2",
+                    "-ori_model_ckpt", base, "-evaluate_per_epoch", "0",
+                    "-model_ckpt", base + "-resumed"]),
+                ("natural_dcp", ["-num_epoches", "1", "-ckpt_backend", "dcp",
+                                 "-evaluate_per_epoch", "0", "-model_ckpt",
+                                 dbase]),
+                ("natural_resume_dcp", [
+                    "-num_epoches", "1", "-start_epoch", "1",
+                    "-ckpt_backend", "dcp", "-ori_model_ckpt", dbase,
+                    "-evaluate_per_epoch", "0", "-model_ckpt",
+                    dbase + "-resumed"])):
+            with timer.stage(stage):
+                runs[stage] = _cli_call(torch, wrappers, natural_train,
+                                        common + argv)
+        first = runs["natural_2_epochs"][0]
+        with open(base + "-resumed.log") as f:
+            resumed_log = f.read().splitlines()
+        with open(dbase + "-resumed.log") as f:
+            dcp_log = f.read().splitlines()
+        epochs = {"final": load_checkpoint(base, "cuda")[3],
+                  "resumed": load_checkpoint(base + "-resumed", "cuda")[3]}
+        launches = {k: sum(r[3][k] for r in runs.values()) for k in wrappers}
+        plain = {k: sum(r[4][k] for r in runs.values()) for k in wrappers}
+        rec = {"phase": "train_cli_natural", "classes": TRAIN_CLASSES,
+               "batch": TRAIN_BATCH, "samples": TRAIN_LEN,
+               "stages_s": dict(timer.totals),
+               "report": timer.report().splitlines(),
+               # after the first epoch, whose two steps autotune cuDNN
+               "ms_per_step": 1e3 * statistics.median(
+                   first["step_s"][2:] + [t for k, r in runs.items()
+                                          if k != "natural_2_epochs"
+                                          for t in r[0]["step_s"]]),
+               "step_s": {k: r[0]["step_s"] for k, r in runs.items()},
+               "losses": {k: r[0]["losses"] for k, r in runs.items()},
+               "val_accs": first["val_accs"],
+               "batch_sizes": [len(lab) for lab in first["labels"]],
+               "checkpoint_epochs": epochs,
+               "resumed_log": resumed_log, "dcp_resumed_log": dcp_log,
+               "dcp_dirs": [os.path.isdir(dbase + sfx)
+                            for sfx in ("_0", "", "-resumed")],
+               "launches": launches, "plain_calls": plain}
+        emit(rec)
+        losses = first["losses"]
+        ok = (rec["batch_sizes"] == [TRAIN_BATCH,
+                                     TRAIN_CLASSES - TRAIN_BATCH] * 2
+              and all(np.isfinite(v).all() for v in rec["losses"].values())
+              and losses[-1] < losses[0] and len(first["val_accs"]) == 2
+              and epochs == {"final": 2, "resumed": 3}
+              and resumed_log[0].startswith("EPOCH 2/3")
+              and dcp_log[0].startswith("EPOCH 1/2")
+              and all(rec["dcp_dirs"]))
+        if not ok:
+            raise RuntimeError(f"train_cli_natural failed: {rec}")
+        if any(launches.values()) or any(plain.values()):
+            raise RuntimeError(f"train_cli_natural: launches {launches}, "
+                               f"plain calls {plain} (expected all 0)")
+        out["train_cli_natural"] = launches
+
+        abase = os.path.join(root, "model_file", "audionet-adver")
+        with timer.stage("adver_1_epoch"):
+            res, _, _, launches, plain = _cli_call(
+                torch, wrappers, adver_train,
+                common + ["-num_epoches", "1", "-max_iter", "10", "-ratio",
+                          "0.5", "-evaluate_adver", "-model_ckpt", abase])
+        rec = {"phase": "train_cli_adver", "classes": TRAIN_CLASSES,
+               "batch": TRAIN_BATCH, "samples": TRAIN_LEN,
+               "attack": "PGD-10", "ratio": 0.5,
+               "seconds": timer.totals["adver_1_epoch"],
+               # one epoch: each step is its batch shape's first, so its
+               # time includes cuDNN's autotuning (the steady step is
+               # slice_train_adver's)
+               "step_s": res["step_s"],
+               "losses": res["losses"], "accs_adv": res["accs_adv"],
+               "accs_nor": res["accs_nor"], "val_accs": res["val_accs"],
+               "val_adver_accs": res["val_adver_accs"],
+               "checkpoint_epoch": load_checkpoint(abase, "cuda")[3],
+               "launches": launches, "plain_calls": plain}
+        emit(rec)
+        ok = (len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+              and len(res["val_adver_accs"]) == 1
+              and rec["checkpoint_epoch"] == 1)
+        if not ok:
+            raise RuntimeError(f"train_cli_adver failed: {rec}")
+        if any(launches.values()) or any(plain.values()):
+            raise RuntimeError(f"train_cli_adver: launches {launches}, "
+                               f"plain calls {plain} (expected all 0)")
+        out["train_cli_adver"] = launches
+    return out
+
+
+def _dp_leaf_errors(got, want):
+    """Each leaf's largest error over its scale, the larger of its largest
+    |entry| and 1% of its tree's (tests/test_torch_parallel.py's rule)."""
+    top = max(float(np.abs(w).max()) for w in want.values())
+    return {n: float(np.abs(got[n] - w).max())
+            / max(float(np.abs(w).max()), 1e-2 * top)
+            for n, w in want.items()}
+
+
+# the AudioNet leaves after its last max-pool (block 7, conv8, and the fc
+# head): a near tie in an earlier pool's window cannot reroute their
+# gradient
+AFTER_LAST_POOL = ("conv_w__6", "conv_b__6", "gamma__6", "beta__6", "fc_w",
+                   "fc_b")
+
+
+def phase_dp_one_card(torch, profile_dir):
+    """dp_one_card: the collective code path of parallel/ on one card; no
+    scaling is measured (two ranks share the card).  Two ranks spawned on
+    cuda:0 with gloo (NCCL refuses two ranks on one device) run
+    parallel/rank_checks.py: the DP natural step at global batch 128 x
+    80,000 (64 a rank, 251 classes, SGD 0.1, augmentation on), in float32
+    and in float64, and PGD-10 with mesh= on iv-PLDA at full width with
+    FastPath() and batch 64 x 3 s (32 a rank: the shared top-K is
+    all-reduced, cholesky_rt runs on each rank, once an iteration and once
+    for the exact final evaluation: 11).  Then the float32 DP step once
+    more on one rank under nccl.  Each is held against the same run in
+    this process with no group, at the CPU test's bars: loss rtol 1e-6,
+    the accuracy equal, BN state atol 1e-6, parameters within 1e-5 of
+    their scale.  The float64 step holds every parameter to that bar; the
+    float32 steps hold the leaves after the last max-pool to it, and
+    report the others: in float32 a rank's rounding (its half of the
+    batch, the all-reduced BN sums) can flip the larger of a near-tied
+    pair in some pool window at this size and reroute that window's
+    gradient (4.7e-4 of scale on conv_w__3 in one run on an NVIDIA H100
+    80GB HBM3, 700 W), while in float64 the rounding is 2^29 times finer
+    and the same code path agrees on every leaf.  The attack's success
+    list and top-K selection equal, the launches per rank as above with no
+    plain call.  With --profile, rank 0 traces one float32 DP step into
+    DIR/dp_trace.  Returns {"dp_one_card": rank 0's launch counts}."""
+    from speakerguard_tpu_torch.models.base import FastPath
+    from speakerguard_tpu_torch.parallel import rank_checks as rc
+    from speakerguard_tpu_torch.parallel.mesh import spawn
+    step_args = ("cuda", TRAIN_CLASSES, TRAIN_BATCH, TRAIN_LEN)
+    pgd_args = ("cuda", 64, 48000, (2048, 72, 600, 200), 10, FastPath())
+    t0 = time.perf_counter()
+    one_step = rc.dp_natural_step(*step_args)
+    one_step64 = rc.dp_natural_step(*step_args, f64=True)
+    one_pgd = rc.sharded_pgd_iv(*pgd_args)
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    trace_dir = os.path.join(profile_dir, "dp_trace") if profile_dir else None
+    t0 = time.perf_counter()
+    ranks = spawn(rc.dp_one_card, 2, (step_args, pgd_args, trace_dir),
+                  backend="gloo", devices=["cuda:0", "cuda:0"],
+                  timeout_s=600)
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = spawn(rc.dp_natural_step, 1, step_args, backend="nccl",
+                    devices=["cuda:0"], timeout_s=600)
+    nccl_s = time.perf_counter() - t0
+
+    def step_check(got, want, dtype):
+        return {"dtype": dtype, "loss": got["loss"], "acc": got["acc"],
+                "acc_equal": got["acc"] == want["acc"],
+                "loss_rel_err": abs(got["loss"] - want["loss"])
+                / abs(want["loss"]),
+                "param_errors": _dp_leaf_errors(got["params"],
+                                                want["params"]),
+                "state_max_err": max(float(np.abs(got["state"][n] - w).max())
+                                     for n, w in want["state"].items()),
+                "step_s": got["seconds"], "world": got["world"]}
+    steps = ([step_check(r[0], one_step, "f32") for r in ranks]
+             + [step_check(nccl, one_step, "f32")]
+             + [step_check(r[1], one_step64, "f64") for r in ranks])
+    expected = {"cholesky_rt": 11}
+    pgds = [r[2] for r in ranks]
+    rec = {"phase": "dp_one_card", "backend_two_ranks": "gloo",
+           "backend_one_rank": "nccl", "one_process_s": one_s,
+           "two_ranks_s": two_s, "nccl_one_rank_s": nccl_s,
+           "one_process_step": {"loss": one_step["loss"],
+                                "acc": one_step["acc"],
+                                "step_s": one_step["seconds"]},
+           "one_process_step_f64": {"loss": one_step64["loss"],
+                                    "acc": one_step64["acc"],
+                                    "step_s": one_step64["seconds"]},
+           "steps": steps,
+           "pgd_one_process": {k: one_pgd[k] for k in (
+               "success", "launches", "plain_calls", "max_dist")},
+           "pgd_ranks": [{k: p[k] for k in ("success", "launches",
+                                            "plain_calls", "max_dist",
+                                            "world")} for p in pgds],
+           "launches_expected_per_rank": expected,
+           "trace_dir": trace_dir}
+    emit(rec)
+    held = {"f32": AFTER_LAST_POOL, "f64": tuple(one_step64["params"])}
+    ok = (all(s["loss_rel_err"] <= 1e-6 and s["acc_equal"]
+              and max(s["param_errors"][n] for n in held[s["dtype"]])
+              <= 1e-5
+              and s["state_max_err"] <= 1e-6 for s in steps)
+          and [s["world"] for s in steps] == [2, 2, 1, 2, 2]
+          and all(p["success"] == one_pgd["success"] and p["finite"]
+                  and p["max_dist"] <= 0.002 + 1e-6
+                  and p["topk_sel"] == one_pgd["topk_sel"]
+                  and p["world"] == 2 for p in pgds))
+    if not ok:
+        raise RuntimeError(f"dp_one_card failed: {rec}")
+    for p in pgds + [one_pgd]:
+        wrong = {k: v for k, v in p["launches"].items()
+                 if v != expected.get(k, 0)}
+        if wrong or any(p["plain_calls"].values()):
+            raise RuntimeError(f"dp_one_card: launches {p['launches']} "
+                               f"(expected {expected} a rank), plain calls "
+                               f"{p['plain_calls']}")
+    launches = dict(pgds[0]["launches"], adpcm=0)
+    return {"dp_one_card": launches}
+
+
 def phase_rounds(torch, models, x, rounds, iters=10):
     """ms per PGD iteration of the given models, ``rounds`` times each, the
     order rotated every round so that no model always runs first."""
@@ -4157,6 +4444,10 @@ def main(argv):
     torch.cuda.empty_cache()
     cli_rec = phase_cli_kernels(torch, chol)
     launches.update(phase_cli(torch, wrappers))
+    torch.cuda.empty_cache()
+    launches.update(phase_train_clis(torch, wrappers))
+    torch.cuda.empty_cache()
+    launches.update(phase_dp_one_card(torch, profile_dir))
 
     chol_src = "speakerguard_tpu_torch/csrc/chol.cu"
     gmm_src = "speakerguard_tpu_torch/csrc/gmm.cu"

@@ -6,6 +6,10 @@ binary search over c, early stop on a loss plateau and per-sample best
 tracking.  The JAX package's while-of-scan-chunks is a Python loop here.
 The per-sample bests stay on the device; the host reads the loss at the
 early-stop checks and the (B,) decisions once per binary-search step.
+
+Under ``mesh=`` (attacks/base.py) the early-stop check reads the global
+batch's mean loss, so every rank stops together, and ``consts`` is the
+global batch's.
 """
 
 import numpy as np
@@ -36,7 +40,7 @@ class CW2(Attack):
     def __init__(self, model, task="CSI", targeted=False, confidence=0.0,
                  initial_const=1e-3, binary_search_steps=9, max_iter=10000,
                  stop_early=True, stop_early_iter=1000, lr=1e-2,
-                 batch_size=None, fast=False, fast_topk=False):
+                 batch_size=None, fast=False, fast_topk=False, mesh=None):
         # batch_size: memory knob chunking the input like the reference's
         # attack() loop; None = the whole input in one batch.
         # fast: the inner loop scores through the model's fast
@@ -47,6 +51,7 @@ class CW2(Attack):
         # default: CW2's L2 perturbations leave the ball around the clean
         # input in which the frozen selection is faithful.
         self.batch_size = batch_size
+        self.mesh = mesh
         self.model = model
         self.task = task
         self.targeted = targeted
@@ -79,8 +84,8 @@ class CW2(Attack):
         audio): l1 the clipped margin loss, l2 the squared L2 distance of
         the audio tanh(modifier + x_atanh) from ``x``."""
         input_x = torch.tanh(modifier + x_atanh)
-        scores = self.model.score(input_x, rng=gen, fast=self.fast,
-                                  fast_ctx=ctx)
+        scores = self.model.score(input_x, rng=self._row_rng(gen),
+                                  fast=self.fast, fast_ctx=ctx)
         l1 = self._loss1(scores, y)
         l2 = torch.sum(torch.square(input_x - x), dim=-1)
         return torch.sum(const * l1 + l2), (l1, l2, scores, input_x)
@@ -92,8 +97,8 @@ class CW2(Attack):
         model = self.model
         b = x.shape[0]
         x_atanh = torch.atanh(x * ATANH_CLIP)
-        ctx = (model.fast_context(x) if self.fast and self.fast_topk
-               else None)
+        ctx = (model.fast_context(x, shard=self._shard)
+               if self.fast and self.fast_topk else None)
         modifier = torch.zeros_like(x)
         mu, nu = torch.zeros_like(x), torch.zeros_like(x)
         best = (torch.full((b,), float("inf"), device=x.device),
@@ -117,7 +122,7 @@ class CW2(Attack):
                     torch.where(better, decisions, best[1]),
                     torch.where(better[:, None], input_x, best[2]))
             if self.stop_early and n_iter % self.stop_early_iter == 0:
-                loss_mean = torch.mean(const * l1 + l2)
+                loss_mean = self._mean(const * l1 + l2)
                 if bool(loss_mean > 0.9999 * prev_loss):
                     break
                 prev_loss = loss_mean
@@ -148,7 +153,7 @@ class CW2(Attack):
                         const[j] = (lower_bound[j] + upper_bound[j]) / 2
                     else:
                         const[j] *= 10
-        self._consts.append(const)
+        self._consts.append(self._gather_np(const, x.device))
 
         _, global_score, global_x = global_best
         success = (global_score != -2).tolist()

@@ -14,6 +14,11 @@ accept/exceed exits compare raw scores against candidate thresholds.
 
 Also implements the SV/OSI decision-threshold estimation
 (FAKEBOB.py:210-295): a host loop over candidate thresholds.
+
+Under ``mesh=`` (attacks/base.py) ``noise_fn`` is asked for the global
+chunk's (S/2, B, L) draw, the loop runs while any lane of the global batch
+is active and the exact guard runs whenever a lane of it crosses, so the
+ranks step together; threshold estimation is not sharded.
 """
 
 import numpy as np
@@ -51,7 +56,7 @@ class FAKEBOB(Attack):
                  samples_per_draw_batch_size=50, sigma=0.001, momentum=0.9,
                  plateau_length=5, plateau_drop=2.0, stop_early=True,
                  stop_early_iter=100, batch_size=None, EOT_size=1, fast=True,
-                 noise_fn=None):
+                 noise_fn=None, mesh=None):
         # batch_size: memory knob chunking the input like the reference's
         # attack() loop; None = the whole input in one batch.  The NES
         # samples chunk through samples_per_draw_batch_size.
@@ -67,6 +72,7 @@ class FAKEBOB(Attack):
         # default torch.randn from the attack's generator, one draw per
         # iteration in order.
         self.batch_size = batch_size
+        self.mesh = mesh
         self.model = model
         self.threshold = threshold
         self.task = task
@@ -111,18 +117,23 @@ class FAKEBOB(Attack):
                            self.EOT_size)
 
     def _noise_fn(self, gen):
-        if self.noise_fn is not None:
-            return self.noise_fn
-        dev = self.model.device
-        return lambda it, shape: torch.randn(shape, generator=gen,
-                                             device=dev)
+        """noise(it, shape) with the batch along dim 1 of ``shape``: under
+        a mesh, this rank's rows of the global draw."""
+        fn = self.noise_fn
+        if fn is None:
+            dev = self.model.device
+
+            def fn(it, shape):
+                return torch.randn(shape, generator=gen, device=dev)
+        return lambda it, shape: self._draw_rows(
+            lambda s: fn(it, s), shape, dim=1)
 
     def _nes_step(self, x, y, eot_fn, noise, gen):
         num_classes = self.model.num_spks if self.model.num_spks else 1
         return nes.nes_grad(eot_fn, x, y, noise,
                             samples_per_draw=self.samples_per_draw,
                             sigma=self.sigma, num_classes=num_classes,
-                            rng=gen,
+                            rng=self._row_rng(gen),
                             samples_batch=self.samples_per_draw_batch_size)
 
     def _bounds(self, x):
@@ -143,7 +154,8 @@ class FAKEBOB(Attack):
             # the fast context (iv-PLDA's frozen top-K selection) comes
             # from the clean input once, valid inside the epsilon ball
             nes_fn = self._eot_fn(self.threshold, fast=True,
-                                  fast_ctx=model.fast_context(x0))
+                                  fast_ctx=model.fast_context(
+                                      x0, shard=self._shard))
         dev = x0.device
         x, best_x = x0, x0
         prev_grad = torch.zeros_like(x0)
@@ -155,7 +167,7 @@ class FAKEBOB(Attack):
         prev_loss = torch.full((b,), float("inf"), device=dev)
         it = guard_evals = 0
         with torch.no_grad():
-            while it <= self.max_iter and bool(active.any()):
+            while it <= self.max_iter and self._any(active):
                 loss, grad, adver_loss, _, _ = self._nes_step(
                     x, y, nes_fn, noise_fn(it, shape), gen)
                 # the bests use the loss at this iteration's x, before the
@@ -169,8 +181,8 @@ class FAKEBOB(Attack):
                 # evaluation runs only on iterations where some lane
                 # crosses.
                 drop = active & (adver_loss < 0)
-                if self.fast and bool(drop.any()):
-                    drop = drop & (exact_fn(x, y, gen)[1] < 0)
+                if self.fast and self._any(drop):
+                    drop = drop & (exact_fn(x, y, self._row_rng(gen))[1] < 0)
                     guard_evals += 1
                 active = active & ~drop
 
@@ -192,7 +204,7 @@ class FAKEBOB(Attack):
                 it += 1
             if self.fast:
                 # success is decided on the exact path
-                best_loss = exact_fn(best_x, y, gen)[1]
+                best_loss = exact_fn(best_x, y, self._row_rng(gen))[1]
         self.last_executed_iters = it
         self.last_guard_evals = guard_evals
         return best_x, (best_loss < 0).tolist()

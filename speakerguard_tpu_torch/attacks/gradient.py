@@ -31,7 +31,10 @@ Each returns a float32 array or tensor of ``shape``.  The restart index is 0
 without restarts.  FGSM and CWinf take them as attributes.  With
 ``batch_size`` chunking each chunk calls them again with the same indices.
 ``dither_fn`` reaches the base model's frontend; a defended model with
-defenses has no dithered frontend and rejects it.
+defenses has no dithered frontend and rejects it.  Under ``mesh=`` (see
+attacks/base.py) both hooks are asked for the global chunk's draw, of
+which the rank takes its rows, and the restarts' whole-batch success
+rates are global.
 """
 
 import torch
@@ -48,16 +51,18 @@ class PGD(Attack):
     def __init__(self, model, task="CSI", epsilon=0.002, step_size=0.0004,
                  max_iter=10, num_random_init=0, loss="Entropy",
                  targeted=False, batch_size=None, EOT_size=1,
-                 init_noise_fn=None, dither_fn=None):
+                 init_noise_fn=None, dither_fn=None, mesh=None):
         # batch_size: optional memory knob chunking the input like the
         # reference's attack() loops; None = the whole input in one batch.
         # The EOT_size repeats run one after another (adaptive/eot.py).
         # init_noise_fn, dither_fn: the draw hooks (module docstring).
+        # mesh: a DeviceMesh whose 'data' axis shards each chunk.
         if dither_fn is not None and getattr(model, "num_defenses", 0):
             raise ValueError("dither_fn: a defended model's frontend has no "
                              "dither")
         self.init_noise_fn = init_noise_fn
         self.dither_fn = dither_fn
+        self.mesh = mesh
         self.batch_size = batch_size
         self.model = model
         self.task = task
@@ -84,17 +89,21 @@ class PGD(Attack):
         """What iteration ``it``'s EOT repeats draw their dither from: the
         generator, or one draw function each from ``dither_fn``."""
         if self.dither_fn is None:
-            return gen
-        return [lambda shape, e=e: self.dither_fn(restart, it, e, shape)
+            return self._row_rng(gen)
+        return [self._row_rng(
+                    lambda shape, e=e: self.dither_fn(restart, it, e, shape))
                 for e in range(self.EOT_size)]
 
     def _init_noise(self, x, gen, restart):
         if self.init_noise_fn is None:
-            noise = torch.rand(x.shape, generator=gen, device=x.device,
-                               dtype=x.dtype)
+            noise = self._draw_rows(
+                lambda shape: torch.rand(shape, generator=gen,
+                                         device=x.device, dtype=x.dtype),
+                x.shape)
             return (2.0 * noise - 1.0) * self.epsilon
-        noise = torch.as_tensor(self.init_noise_fn(restart, tuple(x.shape)),
-                                dtype=x.dtype, device=x.device)
+        noise = torch.as_tensor(
+            self._draw_rows(lambda shape: self.init_noise_fn(restart, shape),
+                            x.shape), dtype=x.dtype, device=x.device)
         if noise.shape != x.shape:
             raise ValueError(f"init noise of shape {tuple(noise.shape)}, "
                              f"expected {tuple(x.shape)}")
@@ -104,7 +113,8 @@ class PGD(Attack):
         """One restart: bounds, optional init noise, the iterations, the
         exact final evaluation."""
         model = self.model
-        ctx = model.fast_context(x)  # dither-free, once per restart
+        # dither-free, once per restart
+        ctx = model.fast_context(x, shard=self._shard)
         eot_run = eot(lambda xx, g: model.score(xx, rng=g, fast=True,
                                                 fast_ctx=ctx),
                       self.loss_fn, model.threshold, self.EOT_size)
@@ -145,8 +155,8 @@ class PGD(Attack):
             best_rate, best_x, best_pred = -1.0, None, None
             for r in range(self.num_random_init):
                 x_adv, predict, _ = self._single(x, y, gen, True, r)
-                rate = float(compare(y, predict, self.targeted).float()
-                             .mean())
+                rate = float(self._mean(
+                    compare(y, predict, self.targeted).float()))
                 if rate > best_rate:
                     best_rate, best_x, best_pred = rate, x_adv, predict
             adver_x, predict = best_x, best_pred
@@ -159,11 +169,11 @@ class PGD(Attack):
 class FGSM(PGD):
 
     def __init__(self, model, task="CSI", epsilon=0.002, loss="Entropy",
-                 targeted=False, batch_size=None, EOT_size=1):
+                 targeted=False, batch_size=None, EOT_size=1, mesh=None):
         super().__init__(model, task=task, epsilon=epsilon,
                          step_size=epsilon, max_iter=1, num_random_init=0,
                          loss=loss, targeted=targeted, batch_size=batch_size,
-                         EOT_size=EOT_size)
+                         EOT_size=EOT_size, mesh=mesh)
 
     def _bounds(self, x):
         # FGSM clips to the global audio range, not an epsilon ball
@@ -175,9 +185,9 @@ class CWinf(PGD):
 
     def __init__(self, model, task="CSI", epsilon=0.002, step_size=0.0004,
                  max_iter=10, num_random_init=0, loss="Margin",
-                 targeted=False, batch_size=None, EOT_size=1):
+                 targeted=False, batch_size=None, EOT_size=1, mesh=None):
         super().__init__(model, task=task, epsilon=epsilon,
                          step_size=step_size, max_iter=max_iter,
                          num_random_init=num_random_init, loss="Margin",
                          targeted=targeted, batch_size=batch_size,
-                         EOT_size=EOT_size)
+                         EOT_size=EOT_size, mesh=mesh)

@@ -34,6 +34,10 @@ epoch 0, ``"reinit"`` (B, P - 1, L) in [lower, upper] at each later epoch,
 ``"r2"`` (B, P, L) in [0, 1) at each iteration that steps (``it`` is None
 for the epoch's draws).  By default they come from the attack's
 ``torch.Generator``; the CPU tests pass JAX's.
+
+Under ``mesh=`` (attacks/base.py) ``draw_fn`` is asked for the global
+chunk's draws, and the aborts, the guard and the loops' continuation read
+the global batch (its any, its mean gbest), so the ranks step together.
 """
 
 import numpy as np
@@ -45,15 +49,15 @@ from speakerguard_tpu_torch.attacks.base import (Attack, make_generator,
 from speakerguard_tpu_torch.attacks.losses import margin_loss
 
 
-def generator_draws(gen, lower, upper):
-    """The default ``draw_fn``: uniform draws from ``gen`` scaled to the
+def generator_draws(rand, lower, upper):
+    """The default ``draw_fn``: uniform draws ``rand(shape)`` scaled to the
     bounds of each kind (``lower``, ``upper``: (B, L))."""
     v_upper = torch.abs(upper - lower)
     lo = {"init": lower, "reinit": lower, "velocity": -v_upper}
     hi = {"init": upper, "reinit": upper, "velocity": v_upper}
 
     def draw(kind, epoch, it, shape):
-        u = torch.rand(shape, generator=gen, device=lower.device)
+        u = rand(shape)
         if kind in ("r1", "r2"):
             return u
         a, b = lo[kind][:, None, :], hi[kind][:, None, :]
@@ -68,10 +72,11 @@ class SirenAttack(Attack):
                  c1=1.4961, c2=1.4961, n_particles=25, w_init=0.9,
                  w_end=0.1, batch_size=None, EOT_size=1, abort_early=True,
                  abort_early_iter=10, abort_early_epoch=10, fast=True,
-                 draw_fn=None):
+                 draw_fn=None, mesh=None):
         # batch_size: memory knob chunking the utterance axis (None = the
         # whole input); the particle axis multiplies memory by n_particles
         self.batch_size = batch_size
+        self.mesh = mesh
         self.model = model
         self.threshold = threshold
         self.task = task
@@ -130,10 +135,11 @@ class SirenAttack(Attack):
         y_rep = y.repeat_interleave(p)
         for it in range(self.max_iter + 1):
             do = active if cont else torch.zeros_like(active)
-            any_do = cont and bool(active.any())
+            any_do = cont and self._any(active)
             if any_do:
                 eval_x = (locations + x[:, None, :]).reshape(b * p, length)
-                loss = eot_fn(eval_x, y_rep, gen)[1].reshape(b, p)
+                loss = eot_fn(eval_x, y_rep,
+                              self._row_rng(gen, "batch"))[1].reshape(b, p)
                 self.last_particle_evals += 1
                 upd = do[:, None] & (loss < pbests)
                 pbests = torch.where(upd, loss, pbests)
@@ -151,16 +157,18 @@ class SirenAttack(Attack):
 
             # inner early abort on a plateau of the mean gbest
             if self.abort_early and (it + 1) % self.abort_early_iter == 0:
-                if bool(gbests.mean() > 0.9999 * prev_gbest.mean()):
+                if bool(self._mean(gbests)
+                        > 0.9999 * self._mean(prev_gbest)):
                     cont = False
                 prev_gbest = gbests
 
             newly = active & (gbests < 0)
-            if exact_fn is not None and bool(newly.any()):
-                newly = newly & (exact_fn(gbest_loc + x, y, gen)[1] < 0)
+            if exact_fn is not None and self._any(newly):
+                newly = newly & (exact_fn(gbest_loc + x, y,
+                                          self._row_rng(gen))[1] < 0)
                 self.last_guard_evals += 1
             active = active & ~newly
-            cont = cont and bool(active.any())
+            cont = cont and self._any(active)
 
             if any_do and it < self.max_iter:
                 w = self._inertia(it)
@@ -190,15 +198,23 @@ class SirenAttack(Attack):
         # distortion bounds (SirenAttack.py:251-252)
         lower = torch.clamp(-1.0 - x, min=-self.epsilon)
         upper = torch.clamp(1.0 - x, max=self.epsilon)
-        draw = (self.draw_fn if self.draw_fn is not None
-                else generator_draws(gen, lower, upper))
+        if self.draw_fn is not None:
+            def draw(kind, epoch, it, shape):
+                return self._draw_rows(
+                    lambda s: self.draw_fn(kind, epoch, it, s), shape)
+        else:
+            draw = generator_draws(
+                lambda shape: self._draw_rows(
+                    lambda s: torch.rand(s, generator=gen, device=dev),
+                    shape), lower, upper)
         exact_fn = self._eot_fn()
         eot_fn, guard = exact_fn, None
         if self.fast:
             # the fast context (iv-PLDA's frozen top-K selection) comes
             # from the clean input once, valid inside the epsilon ball
             eot_fn = self._eot_fn(fast=True,
-                                  fast_ctx=model.fast_context(x))
+                                  fast_ctx=model.fast_context(
+                                      x, shard=self._shard))
             guard = exact_fn
         inf = torch.full((b,), float("inf"), device=dev)
         state = dict(pbest_locations=None, pbests=None,
@@ -209,7 +225,7 @@ class SirenAttack(Attack):
         epoch, cont = 0, True
         with torch.no_grad():
             while (epoch < self.max_epoch and cont
-                   and bool(state["active"].any())):
+                   and self._any(state["active"])):
                 if epoch == 0:
                     state["pbest_locations"] = draw("init", epoch, None,
                                                     (b, p, length))
@@ -232,8 +248,8 @@ class SirenAttack(Attack):
                             draw, gen)
                 if (self.abort_early
                         and (epoch + 1) % self.abort_early_epoch == 0):
-                    cont = not bool(state["gbests"].mean()
-                                    > 0.9999 * prev_gbest_epoch.mean())
+                    cont = not bool(self._mean(state["gbests"])
+                                    > 0.9999 * self._mean(prev_gbest_epoch))
                     prev_gbest_epoch = state["gbests"]
                 epoch += 1
             self.last_executed_epochs = epoch
@@ -241,7 +257,7 @@ class SirenAttack(Attack):
             gbests = state["gbests"]
             if self.fast:
                 # success is decided on the exact path
-                gbests = exact_fn(adver, y, gen)[1]
+                gbests = exact_fn(adver, y, self._row_rng(gen))[1]
         return adver, (gbests < 0).tolist()
 
     def attack(self, x, y, rng=None):

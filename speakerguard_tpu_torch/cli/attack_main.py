@@ -17,10 +17,15 @@ Where it differs from the JAX CLI:
     JAX folds the batch index into ``PRNGKey(seed)``: the draws differ.
     The attacks' draw hooks (``PGD(init_noise_fn=, dither_fn=)``) take
     another source of draws.
-  * ``-n_devices > 1`` raises NotImplementedError for the white-box
-    attacks, where the JAX CLI shards the batch over a device mesh: the
-    port's data parallelism (speakerguard_tpu/parallel/) is not ported
-    yet.  The other attacks ignore it, as in the JAX CLI.
+  * ``-n_devices N > 1`` with FGSM, PGD or CWinf runs N ranks
+    (``parallel.mesh.launch``: spawned from a plain process, rank r on
+    ``cuda:r``, or one each under ``torchrun``), joined with nccl on cuda
+    and gloo on the CPU; the attack
+    gets the mesh, as the JAX CLI's does, and splits each batch over the
+    ranks (attacks/base.py).  Every rank reads the whole batch; rank 0
+    decides the skips, writes the waves and prints the success rate, and
+    ``main`` returns its result.  The other attacks ignore it, as in the
+    JAX CLI.
   * ``-EOT_batch_size`` is parsed and passed nowhere, exactly as in the
     JAX CLI (its make_attacker never reads it).
 """
@@ -31,17 +36,21 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from speakerguard_tpu_torch.attacks import (FGSM, PGD, CWinf, CW2, FAKEBOB,
                                             SirenAttack, Kenan)
 from speakerguard_tpu_torch.cli.common import (add_defense_args,
                                                add_device_arg,
                                                add_system_subparsers,
-                                               build_model, seeded_generator)
+                                               build_model, cli_device,
+                                               seeded_generator)
 from speakerguard_tpu_torch.data.dataset import Dataset
+from speakerguard_tpu_torch.parallel.mesh import is_rank0, launch, make_mesh
 from speakerguard_tpu_torch.utils.audio_io import read_wav, write_wav
 
 BLACK_BOX_ATTACKS = ("FAKEBOB", "SirenAttack")
+SHARDED_ATTACKS = ("FGSM", "PGD", "CWinf")
 
 
 def parse_args(argv=None):
@@ -69,8 +78,8 @@ def parse_args(argv=None):
     parser.add_argument("-end", type=int, default=-1)
     parser.add_argument("-seed", type=int, default=0)
     parser.add_argument("-n_devices", type=int, default=1,
-                        help="more than 1 is not supported yet (the JAX "
-                             "CLI shards white-box attacks over a mesh)")
+                        help="shard each attack batch over a 'data' mesh "
+                             "of this many ranks (white-box attacks)")
     add_device_arg(parser)
 
     systems = add_system_subparsers(parser)
@@ -143,12 +152,10 @@ def parse_args(argv=None):
 
 def make_attacker(args, model):
     common = dict(targeted=args.targeted, batch_size=args.batch_size)
-    if getattr(args, "n_devices", 1) > 1 and args.attacker in (
-            "FGSM", "PGD", "CWinf"):
-        raise NotImplementedError(
-            "-n_devices > 1: the port does not shard an attack over devices "
-            "yet (speakerguard_tpu/parallel/ is unported, ROADMAP.md queue "
-            "1 item 2); run with -n_devices 1")
+    if getattr(args, "n_devices", 1) > 1 and args.attacker in \
+            SHARDED_ATTACKS:
+        common["mesh"] = make_mesh(args.n_devices, axes=("data",),
+                                   device_type=model.device.type)
     if args.attacker == "FGSM":
         return FGSM(model, task=args.task, epsilon=args.epsilon,
                     loss=args.loss, EOT_size=args.EOT_size, **common)
@@ -223,7 +230,25 @@ def main(args):
     """Runs the attack over the dataset and writes the adversarial WAVs.
     Returns {"adver_dir", "success": {utterance: bool} of the batches
     attacked in this run, "success_rate" (None when every batch was
-    skipped), "attack_s": wall seconds inside the attack calls}."""
+    skipped), "attack_s": wall seconds inside the attack calls}; with
+    ``-n_devices`` > 1, rank 0's."""
+    if args.n_devices > 1 and args.attacker in SHARDED_ATTACKS:
+        return launch(run, args, args.n_devices, cli_device(args))
+    return run(args)
+
+
+def _skip(path, dev) -> bool:
+    """Whether the batch's first wave exists, as rank 0 sees it (one
+    decision for every rank)."""
+    flag = torch.tensor([int(os.path.exists(path))], device=dev)
+    if dist.is_initialized():
+        dist.broadcast(flag, src=0)
+    return bool(flag)
+
+
+def run(args):
+    """One rank's attack run (the whole run without -n_devices)."""
+    rank0 = is_rank0()
     base, model, defense_name = build_model(args)
     dev = model.device
     spk_ids = base.spk_ids
@@ -258,7 +283,8 @@ def main(args):
         f"./adver-audio/{args.system_type}-{args.task}-{args.name}/"
         f"{defense_name}/{args.attacker}/"
         f"{args.attacker}-{attacker_param_tag(args)}")
-    print(adver_dir)
+    if rank0:
+        print(adver_dir)
 
     name2target = {}
     if args.target_label_file is not None:
@@ -277,8 +303,9 @@ def main(args):
             continue
         des_path = os.path.join(adver_dir, names[0].split("-")[0],
                                 names[0] + ".wav")
-        if os.path.exists(des_path):
-            print("*" * 40, index, names[0], "Exists, Skip", "*" * 40)
+        if _skip(des_path, dev):
+            if rank0:
+                print("*" * 40, index, names[0], "Exists, Skip", "*" * 40)
             continue
         # Attacks operate in the scale domain.  Dataset(normalize=True)
         # already yields it (reference attackMain.py:188-189 feeds the
@@ -301,7 +328,8 @@ def main(args):
                         cands.remove(y)
                     target[ii] = rng.choice(cands)
             true = target
-        print("*" * 10, index, "*" * 10)
+        if rank0:
+            print("*" * 10, index, "*" * 10)
         t0 = time.perf_counter()
         adver, success = attacker.attack(
             torch.tensor(origin, device=dev), true,
@@ -309,13 +337,14 @@ def main(args):
         attack_s += time.perf_counter() - t0
         adver = adver.cpu().numpy()
         for adv_i, name, ok in zip(adver[:, 0, :], names, success):
-            spk_dir = os.path.join(adver_dir, name.split("-")[0])
-            os.makedirs(spk_dir, exist_ok=True)
-            write_wav(os.path.join(spk_dir, name + ".wav"), adv_i)
+            if rank0:
+                spk_dir = os.path.join(adver_dir, name.split("-")[0])
+                os.makedirs(spk_dir, exist_ok=True)
+                write_wav(os.path.join(spk_dir, name + ".wav"), adv_i)
             name2success[name] = bool(ok)
 
     rate = None
-    if name2success:
+    if name2success and rank0:
         rate = sum(name2success.values()) * 100 / len(name2success)
         print(args.defense, args.defense_param, args.attacker,
               attacker_param_tag(args), "success rate: %f" % rate)

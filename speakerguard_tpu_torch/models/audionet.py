@@ -39,6 +39,7 @@ from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.models.base import (NEG_INF, FastPath, SRSModel,
                                                 tree_leaves, tree_rebuild)
 from speakerguard_tpu_torch.ops.logmel import AUDIONET_LOGMEL, audionet_logmel
+from speakerguard_tpu_torch.parallel.mesh import all_reduce_sum
 
 # conv1d blocks: (cin, cout, kernel, padding, maxpool)
 CONV_SPEC = (
@@ -154,7 +155,7 @@ def init_audionet(rng: np.random.Generator, num_class: int, device=None
     return from_jax_layout(params, state, device)
 
 
-def _bn(x, gamma, beta, mean, var, train):
+def _bn(x, gamma, beta, mean, var, train, sync=None):
     """BatchNorm over every axis of ``x`` but the channel axis 1.  Returns
     (y, batch mean, unbiased batch variance); the batch stats are None in
     eval mode.
@@ -165,20 +166,34 @@ def _bn(x, gamma, beta, mean, var, train):
     multiplies by a numpy float64 scalar, which JAX promotes to float32, so
     that the unbiased variance, and the running variance moved toward it,
     come back float32.  In float32 (and float64) all of this is the plain
-    expression."""
+    expression.
+
+    ``sync`` = (process group, rows of the global batch) makes train mode
+    take the global batch's statistics, as JAX's sharded step does: the
+    float32 sums, and then the sums of the squares around the global mean,
+    are all-reduced with gradient over the group, and the unbiased rescale
+    counts the global batch."""
     dims = (0,) + tuple(range(2, x.ndim))
     shape = (1, -1) + (1,) * (x.ndim - 2)
     gamma, beta = gamma.view(shape), beta.view(shape)
     if train:
         wide = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(wide)
-        mf = xf.mean(dim=dims)
-        cf = xf - mf.view(shape)
-        v = (cf * cf).mean(dim=dims).to(x.dtype)      # biased, as jnp.var
+        if sync is None:
+            n = x.numel() // x.shape[1]
+            mf = xf.mean(dim=dims)
+            cf = xf - mf.view(shape)
+            v = (cf * cf).mean(dim=dims).to(x.dtype)  # biased, as jnp.var
+        else:
+            group, rows = sync
+            n = rows * (x.numel() // max(x.shape[0] * x.shape[1], 1))
+            mf = all_reduce_sum(xf.sum(dim=dims), group) / n
+            cf = xf - mf.view(shape)
+            v = (all_reduce_sum((cf * cf).sum(dim=dims), group) / n).to(
+                x.dtype)
         m = mf.to(x.dtype)
         y = (x - m.view(shape)) * torch.rsqrt(v.view(shape) + BN_EPS) \
             * gamma + beta
-        n = x.numel() // x.shape[1]
         return y, m, v.to(wide) * (n / max(n - 1, 1))
     y = ((x - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS)
          * gamma + beta)
@@ -197,10 +212,11 @@ def _maxpool1d(x):
 
 
 def audionet_embedding(params: AudioNetParams, state: AudioNetState,
-                       feats: torch.Tensor, train: bool = False):
+                       feats: torch.Tensor, train: bool = False, sync=None):
     """feats: (B, T, F=32) -> ((B, 32) embedding, new_state).  The dtype of
     ``feats`` and of the tensors of ``params`` and ``state`` (one dtype for
-    all) is the dtype of the whole chain."""
+    all) is the dtype of the whole chain.  ``sync``: train-mode BN over a
+    global batch (``_bn``)."""
     new_m, new_v = list(state.means), list(state.vars)
 
     # 2D pre-filter on (B, 1, F, T); JAX adds the bias after the conv
@@ -208,7 +224,7 @@ def audionet_embedding(params: AudioNetParams, state: AudioNetState,
     x = F.conv2d(x, params.conv1_w, padding=2) + params.conv1_b.view(
         1, -1, 1, 1)
     x, bm, bv = _bn(x, params.conv1_gamma, params.conv1_beta,
-                    state.conv1_mean, state.conv1_var, train)
+                    state.conv1_mean, state.conv1_var, train, sync)
     c1_m, c1_v = state.conv1_mean, state.conv1_var
     if train:
         c1_m, c1_v = _running(c1_m, bm), _running(c1_v, bv)
@@ -221,7 +237,7 @@ def audionet_embedding(params: AudioNetParams, state: AudioNetState,
         x = F.conv1d(x, params.conv_w[i], padding=pad) + params.conv_b[i][
             :, None]
         x, bm, bv = _bn(x, params.gamma[i], params.beta[i], state.means[i],
-                        state.vars[i], train)
+                        state.vars[i], train, sync)
         if train:
             new_m[i] = _running(state.means[i], bm)
             new_v[i] = _running(state.vars[i], bv)
@@ -234,9 +250,9 @@ def audionet_embedding(params: AudioNetParams, state: AudioNetState,
 
 
 def audionet_logits(params: AudioNetParams, state: AudioNetState,
-                    feats: torch.Tensor, train: bool = False):
+                    feats: torch.Tensor, train: bool = False, sync=None):
     """-> (logits (B, num_class), embedding, new_state)."""
-    emb, new_state = audionet_embedding(params, state, feats, train)
+    emb, new_state = audionet_embedding(params, state, feats, train, sync)
     return emb @ params.fc_w + params.fc_b, emb, new_state
 
 

@@ -217,11 +217,14 @@ class SRSModel(nn.Module):
         raise NotImplementedError
 
     # ---- per-attack-run fast-path context ----
-    def fast_context(self, x):
+    def fast_context(self, x, shard=None):
         """Per-run constants of the fast attack-gradient path, computed once
         from the attack's clean input (iv_plda's frozen top-K Gaussian
         selection).  Models without one return None; attacks pass the
-        result back through ``fast_ctx=``.  Never affects the exact path."""
+        result back through ``fast_ctx=``.  Never affects the exact path.
+        ``shard`` (a ``parallel.mesh.BatchShard``): ``x`` is this rank's
+        rows of the batch, and a selection shared by the batch reduces
+        over the ranks."""
         return None
 
     # ---- uniform API ----

@@ -78,7 +78,7 @@ class DefendedModel(SRSModel):
     def fast_path(self):
         return self.base_model.fast_path
 
-    def fast_context(self, x):
+    def fast_context(self, x, shard=None):
         """None: the fast path under a defense has no per-run context."""
         return None
 

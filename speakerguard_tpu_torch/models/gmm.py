@@ -356,11 +356,15 @@ class GmmTopKContext(NamedTuple):
 
 @torch.no_grad()
 def make_topk_context(params: FullGMMParams, feats: torch.Tensor,
-                      k: int) -> GmmTopKContext | None:
+                      k: int, shard=None) -> GmmTopKContext | None:
     """One full-C fast loglike pass on the (clean) features -> the shared
     top-K components, ranked by the max over utterances of their
     per-utterance posterior-mass fraction.  None when K <= 0 or K >= C
-    (selection is a no-op)."""
+    (selection is a no-op).  ``shard`` (a ``parallel.mesh.BatchShard``):
+    ``feats`` are this rank's utterances, and the max over utterances is
+    all-reduced over the ranks before the top K are taken (as GSPMD
+    reduces it over the sharded batch in JAX), so every rank freezes the
+    same components."""
     if k <= 0 or k >= params.num_gaussians:
         return None
     dt = fast_dot_dtype(feats.device)
@@ -368,7 +372,10 @@ def make_topk_context(params: FullGMMParams, feats: torch.Tensor,
     loglike = dot_f32(_augment_fwd(feats.to(dt)),
                       proj16.to(dt)) + params.gconsts
     frac = torch.softmax(loglike, dim=-1).mean(dim=-2)        # (B, C)
-    sel = torch.topk(frac.amax(dim=0), k).indices             # (K,)
+    score = frac.amax(dim=0)                                  # (C,)
+    if shard is not None:
+        score = shard.max(score)
+    sel = torch.topk(score, k).indices                        # (K,)
     return GmmTopKContext(sel=sel,
                           proj_sel=proj16.index_select(1, sel).contiguous(),
                           gconsts_sel=params.gconsts.index_select(0, sel))

@@ -112,10 +112,11 @@ class IvFastContext(NamedTuple):
 
 
 def make_fast_context(params: IvPldaParams, feats: torch.Tensor,
-                      k: int) -> IvFastContext | None:
+                      k: int, shard=None) -> IvFastContext | None:
     """Shared top-K selection from (clean) CMVN features + extractor
-    slices.  None when selection is a no-op (K <= 0 or K >= C)."""
-    g = gmm_mod.make_topk_context(params.fgmm, feats, k)
+    slices.  None when selection is a no-op (K <= 0 or K >= C).
+    ``shard``: ``feats`` are this rank's rows (``make_topk_context``)."""
+    g = gmm_mod.make_topk_context(params.fgmm, feats, k, shard)
     if g is None:
         return None
     return IvFastContext(gmm=g,
@@ -217,7 +218,7 @@ class IvPlda(SRSModel):
             topk_ctx=fast_ctx if fp is not None else None,
             loglike_kernel=self.loglike_kernel, spd_solver=self.spd_solver)
 
-    def fast_context(self, x):
+    def fast_context(self, x, shard=None):
         """The frozen batch-shared top-K Gaussian selection of an attack
         run (``FastPath.gmm_topk``), from the run's clean input on the fast
         frontend without dither; None when the fast path or the selection
@@ -228,7 +229,7 @@ class IvPlda(SRSModel):
         with torch.no_grad():
             feats = self.compute_feat(x, flag=self.allowed_flags[-1],
                                       fast=True)
-            return make_fast_context(self.params, feats, fp.gmm_topk)
+            return make_fast_context(self.params, feats, fp.gmm_topk, shard)
 
     def _scores_from_emb(self, emb, enroll_embs=None):
         return scores_from_emb(self.params, emb, self._enrolled(enroll_embs))

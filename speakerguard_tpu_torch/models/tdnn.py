@@ -274,13 +274,34 @@ class _StatsPoolFastBf16(torch.autograd.Function):
         return _mean_std_vjp(g, *ctx.saved_tensors).to(torch.bfloat16)
 
 
+def _normal(rng, shape, device) -> torch.Tensor:
+    """Standard normal float32 noise of ``shape`` from ``rng``: a
+    torch.Generator, or a draw function ``rng(shape)``."""
+    if isinstance(rng, torch.Generator):
+        return torch.randn(shape, generator=rng, device=device)
+    noise = torch.as_tensor(rng(tuple(shape)), dtype=torch.float32,
+                            device=device)
+    if tuple(noise.shape) != tuple(shape):
+        raise ValueError(f"noise of shape {tuple(noise.shape)}, expected "
+                         f"{tuple(shape)}")
+    return noise
+
+
 def tdnn_embedding(params: TDNNParams, feats: torch.Tensor,
-                   fast=None) -> torch.Tensor:
+                   fast=None, train: bool = False, rng=None,
+                   noise_eps: float = 1e-5) -> torch.Tensor:
     """feats: (B, T, F=30) -> (B, 512) x-vector, fc1's pre-nonlinearity
     output (reference xvecTDNN.embedding).  ``fast`` (a ``FastPath``; None
     = exact) picks the fast blocks when its ``tdnn_fast`` is set, with bf16
-    activations when ``tdnn_bf16_act`` is too."""
-    use_fast = fast is not None and fast.tdnn_fast
+    activations when ``tdnn_bf16_act`` is too.
+
+    ``train=True`` runs the exact blocks (``fast`` is ignored) and, when
+    ``rng`` is given, adds ``noise_eps`` times standard normal noise to the
+    last block's output, as the JAX package's train mode does
+    (speakerguard_tpu/models/tdnn.py:329-330).  ``rng``: a torch.Generator
+    on the features' device, or ``draw(shape)``, a caller's draw function
+    (the CPU tests pass JAX's ``normal(rng, x.shape)``)."""
+    use_fast = fast is not None and fast.tdnn_fast and not train
     use_bf16 = use_fast and fast.tdnn_bf16_act
     x = feats.to(torch.bfloat16) if use_bf16 else feats
     block = _BlockFastBf16 if use_bf16 else _BlockFast
@@ -290,6 +311,8 @@ def tdnn_embedding(params: TDNNParams, feats: torch.Tensor,
             x = block.apply(x, w, b, bn.mean, bn.var, dil)
         else:
             x = _bn(F.relu(_conv1d(x, w, b, dil)), bn)
+    if train and rng is not None:
+        x = x + noise_eps * _normal(rng, x.shape, x.device).to(x.dtype)
     if use_bf16:
         stats = _StatsPoolFastBf16.apply(x)
     elif use_fast:
@@ -299,10 +322,12 @@ def tdnn_embedding(params: TDNNParams, feats: torch.Tensor,
     return F.linear(stats, params.fc1_w, params.fc1_b)
 
 
-def tdnn_forward(params: TDNNParams, feats: torch.Tensor) -> torch.Tensor:
+def tdnn_forward(params: TDNNParams, feats: torch.Tensor,
+                 train: bool = False, rng=None) -> torch.Tensor:
     """The classifier head -> (B, num_spks) logits (reference
-    xvecTDNN.forward)."""
-    x = _bn(F.relu(tdnn_embedding(params, feats)), params.bn_fc1)
+    xvecTDNN.forward); ``train``, ``rng``: ``tdnn_embedding``'s."""
+    x = _bn(F.relu(tdnn_embedding(params, feats, train=train, rng=rng)),
+            params.bn_fc1)
     x = _bn(F.relu(F.linear(x, params.fc2_w, params.fc2_b)), params.bn_fc2)
     return F.linear(x, params.fc3_w, params.fc3_b)
 

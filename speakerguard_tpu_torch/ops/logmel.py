@@ -119,8 +119,9 @@ def audionet_logmel(wav: torch.Tensor, cfg: LogMelConfig = AUDIONET_LOGMEL,
     n_mels) log-mel features, T = 1 + (L-1)//hop (the reference returns
     (B, F, T); the port keeps the framework-wide (B, T, F) layout).
     ``fast_dft``: the DFT matmuls in the fast dtype (attack-gradient graphs
-    only).  A wave shorter than n_fft//2 + 2 samples cannot be reflected
-    and raises a ValueError."""
+    only).  A float64 wave is computed in float64 throughout (the float32
+    constants widened).  A wave shorter than n_fft//2 + 2 samples cannot
+    be reflected and raises a ValueError."""
     if wav.ndim != 2:
         raise ValueError("expect (B, L)")
     consts = _consts(cfg, wav.device)
@@ -131,6 +132,6 @@ def audionet_logmel(wav: torch.Tensor, cfg: LogMelConfig = AUDIONET_LOGMEL,
     frames = _Framer.apply(x, geometry, "reflect")     # (B, T, n_fft)
     power = _Power.apply(frames, *consts["dft"],
                          fast_dot_dtype(wav.device) if fast_dft
-                         else torch.float32)
-    mel = power @ consts["mel_t"]                      # (B, T, n_mels)
+                         else torch.promote_types(wav.dtype, torch.float32))
+    mel = power @ consts["mel_t"].to(power.dtype)      # (B, T, n_mels)
     return 10.0 * torch.log10(torch.clamp(mel, min=EPSILON))

@@ -1,6 +1,7 @@
 """optax.adam in PyTorch, as the JAX package uses it: CW2's Adam on the
 modifier (``adam_update``, one tensor) and the trainer's Adam over the
-AudioNet parameters (``Adam``, a tree).
+AudioNet parameters (``Adam``, a tree); and optax.sgd (``SGD``), which the
+data-parallel tests step with.
 
 The state mirrors optax's ``ScaleByAdamState``: ``count`` (the steps taken)
 and the moments ``mu`` and ``nu`` as trees shaped like the parameters.
@@ -73,3 +74,18 @@ class Adam:
                                      flat(state.nu), count, self.lr)
         return (unflat(flat(params) + update),
                 AdamState(count, unflat(mu), unflat(nu)))
+
+
+class SGD:
+    """optax.sgd(lr) without momentum over a tree: ``init(params) -> ()``,
+    ``update(params, grads, state) -> (params, state)``, each leaf
+    ``p + (-lr g)`` as optax scales and applies the update."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params):
+        return ()
+
+    def update(self, params, grads, state):
+        return tree_map(lambda p, g: p + (-self.lr) * g, params, grads), state

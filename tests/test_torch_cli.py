@@ -438,17 +438,108 @@ def test_origin_domain_input_rejected(both, enrolled):
             origin_domain, np.array([0]), rng=0)
 
 
-def test_n_devices_above_one_raises(both, enrolled, tmp_path):
-    """-n_devices 2 (JAX shards the batch over a mesh) is not ported:
-    NotImplementedError, and nothing is written."""
+def test_n_devices_above_one_raises(both, enrolled, tmp_path, monkeypatch):
+    """-n_devices 2 raises, and writes nothing, where it cannot run: on
+    cuda with fewer than 2 cards visible, and under torchrun with another
+    world size."""
     _, paths, data_root = both
     des = str(tmp_path / "adver_mesh")
-    args = attack_main.parse_args(_port(paths, [
-        "-root", data_root, "-name", "Spk10_test", "-des", des,
-        "-n_devices", "2"]) + ["-model_file", enrolled["port"], "PGD"])
-    with pytest.raises(NotImplementedError, match="n_devices"):
+    argv = ["-root", data_root, "-name", "Spk10_test", "-des", des,
+            "-n_devices", "2"]
+    args = attack_main.parse_args(_iv_args(paths, argv) + [
+        "-model_file", enrolled["port"], "PGD"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices"):
+        _quiet(attack_main.main, args)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    args = attack_main.parse_args(_port(paths, argv) + [
+        "-model_file", enrolled["port"], "PGD"])
+    with pytest.raises(ValueError, match="torchrun world of 3"):
         _quiet(attack_main.main, args)
     assert not os.path.exists(des)
+
+
+@pytest.fixture(scope="module")
+def xv_world(both, tmp_path_factory):
+    """An xv-PLDA system on the same waves: a random TDNN in the
+    reference checkpoint's layout, Kaldi text PLDA, mean and LDA files
+    (tests/test_torch_xv_plda.py's), enrolled by the port's enroll.
+    Returns the xv_plda arguments with the model file."""
+    from fixtures import write_mean_vec, write_plda_txt, write_transform_txt
+    from test_torch_tdnn import _reference_state
+    _, _, data_root = both
+    d = tmp_path_factory.mktemp("xv_cli")
+    rng = np.random.default_rng(31)
+    r = 20
+    q, _ = np.linalg.qr(rng.standard_normal((r, r)))
+    write_plda_txt(d / "plda.txt", rng.standard_normal(r) * 0.1, q,
+                   np.abs(rng.standard_normal(r)) + 0.5)
+    write_mean_vec(d / "mean.vec", rng.standard_normal(512) * 0.1)
+    write_transform_txt(d / "transform.txt",
+                        rng.standard_normal((r, 513)) * 0.05)
+    torch.save({k: torch.tensor(v) for k, v in _reference_state(rng).items()},
+               d / "extractor.pt")
+    system = ["xv_plda", "-extractor", str(d / "extractor.pt"), "-plda",
+              str(d / "plda.txt"), "-mean", str(d / "mean.vec"),
+              "-transform", str(d / "transform.txt")]
+    _quiet(enroll.main, enroll.parse_args(
+        ["-model_dir", str(d / "model"), "-root", data_root, "-device",
+         "cpu"] + system))
+    return system + ["-model_file", str(d / "model" / "xv_plda" /
+                                        "speaker_model_xv_plda")]
+
+
+@pytest.mark.parametrize("system", ["iv", "xv"])
+def test_attack_main_two_ranks_equal_one(system, both, enrolled, request,
+                                         tmp_path, capfd):
+    """attack_main PGD at the CLI's defaults (every score dithered) with
+    -n_devices 2 on the CPU (two spawned ranks under gloo, each batch of 2
+    split over them) against -n_devices 1, on this file's iv-PLDA world
+    and on xv-PLDA over the same waves: the same printed success rate and
+    per-utterance success, the same tree of waves, every sample within 2
+    epsilon.  Neither system's audio can be held to the in-process bars
+    of tests/test_torch_parallel.py: each scores a batch of 1 and one of 2
+    at ULP distance (xv: 3.05e-5 on scores in the hundreds, on every
+    split), and a sign step turns that into whole-step moves where a
+    gradient entry is near zero.  iv is held to tests/test_parallel.py's
+    iv contract (at most 1e-3 of the samples beyond 2 int16 steps); on
+    xv, over ten steps, the flips spread (measured: 1,345 of 48,000
+    samples beyond 2 int16 steps, all in rank 1's rows, 1,212 in one
+    wave), so only the 2-epsilon bound holds there."""
+    _, paths, data_root = both
+    if system == "iv":
+        model = _iv_args(paths, []) + ["-model_file", enrolled["port"]]
+    else:
+        model = request.getfixturevalue("xv_world")
+    runs = {}
+    for n in ("1", "2"):
+        des = str(tmp_path / f"adver_n{n}")
+        args = attack_main.parse_args(
+            ["-root", data_root, "-name", "Spk10_test", "-des", des,
+             "-batch_size", "2", "-wav_length", "8000", "-n_devices", n,
+             "-device", "cpu"] + model + ["PGD"])
+        # the spawned ranks print to the file descriptor, not sys.stdout
+        capfd.readouterr()
+        result = attack_main.main(args)
+        runs[n] = (des, result, capfd.readouterr().out)
+    (d1, r1, t1), (d2, r2, t2) = runs["1"], runs["2"]
+    assert r2["success"] == r1["success"] and len(r1["success"]) == 6
+    assert _rate(t2) == _rate(t1) == r2["success_rate"]
+    assert t2.count("success rate") == 1   # rank 0 alone prints
+    names = _wavs(d1)
+    assert names and _wavs(d2) == names
+    far = total = 0
+    for rel in names:
+        a, b = read_wav(os.path.join(d1, rel)), read_wav(os.path.join(d2, rel))
+        assert a.shape == b.shape
+        diff = np.abs(a - b)
+        assert diff.max() <= 2 * 0.002 + 2 * LSB, rel
+        far += int((diff > 2 * LSB).sum())
+        total += diff.size
+    if system == "iv":
+        assert far <= 1e-3 * total, far
 
 
 def test_cli_without_a_card_raises(both, monkeypatch):

@@ -1,6 +1,7 @@
 """Import hygiene of the port: no module of speakerguard_tpu_torch, and not
-chip_smoke.py or the port's tools for the card, imports jax or the JAX
-package speakerguard_tpu."""
+chip_smoke.py or the port's tools for the card, imports jax (or optax,
+orbax) or the JAX package speakerguard_tpu; nor does the data-parallel
+tests' rank module, which spawned ranks import."""
 
 import ast
 import importlib
@@ -24,7 +25,8 @@ def _imported_modules(path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "speakerguard_tpu", "flax", "optax")
+    return top in ("jax", "jaxlib", "speakerguard_tpu", "flax", "optax",
+                   "orbax")
 
 
 @pytest.mark.parametrize(
@@ -32,7 +34,8 @@ def _forbidden(name):
                           ROOT / "tools" / "torch_pgd_rounds.py",
                           ROOT / "tools" / "chol_sweep_phases.py",
                           ROOT / "tools" / "stats_bwd_launches.py",
-                          ROOT / "tools" / "ssa_svd_drivers.py"],
+                          ROOT / "tools" / "ssa_svd_drivers.py",
+                          ROOT / "tests" / "_torch_dp_worker.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
@@ -61,6 +64,9 @@ SLICE_MODULES = [
     "cli/__init__.py", "cli/common.py", "cli/enroll.py",
     "cli/set_threshold.py", "cli/specify_target_label.py",
     "cli/attack_main.py", "cli/test_attack.py",
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/input.py",
+    "parallel/rank_checks.py",
+    "utils/profiling.py", "cli/natural_train.py", "cli/adver_train.py",
 ]
 
 
