@@ -166,9 +166,12 @@ Phases, one JSON line each:
  28. codec_small_reference  MULAW at 512 x 3 s card vs CPU (rtol 1e-6,
               atol 1e-6 x max; a level may flip only at a near tie); the
               ADPCM kernel torch.equal to its plain loop on the card at
-              512 x 4,800 samples and on the CPU on 8 x 48,000, its ms at
-              512 x 48,000 beside the plain loop's and its bounds (bytes;
-              the serial chain, adpcm_bound_ms); OPUS and SPEEX at 8 x 3 s
+              512 x 4,800 samples and on the CPU on 16 x 48,000 (waves 0-7
+              and 504-511), for bits 2..16 at 64 x 2,000 and on the edge
+              inputs (adpcm_edge_waves); the fused ADPCM defense equal to
+              the unfused composition; its ms at 512 x 48,000 and cycles a
+              sample beside the plain loop's and its bounds (bytes; the
+              serial chain, adpcm_bound_ms); OPUS and SPEEX at 8 x 3 s
               through a stand-in ffmpeg written to a temporary directory
               and put first on PATH for this phase only (output equal to
               its quantisation, BPDA gradient equal to the incoming one),
@@ -2596,18 +2599,66 @@ def adpcm_bound_ms(b, length, bits, clock_mhz):
     5 (bits - 1) f32 operations a sample (the difference, its sign and
     magnitude, the clamps and adds of the update; a compare, a select and
     three adds per tap) at the f32 rate.  The chain: sample t needs the
-    predictor and step index of sample t - 1, so a wave is L dependent
-    steps, and a step's dependent chain is at least two shared-memory
-    table reads (the step from the index, the index adjustment from the
-    code; ~30 cycles each on Hopper) and about 4 + 2 (bits - 1) + 6
-    dependent ALU operations (~4 cycles each: the difference, a compare
-    and a select per tap, the code's clamp and conversion, the index add
-    and clamp), at the card's highest SM clock.  A latency model, not a
+    predictor that sample t - 1 left, so a wave is L dependent steps, and
+    within a step the predictor's own dependent chain is irreducible
+    whatever the coder's form or the table's place: the difference x -
+    pred, the coder's decision (one stage of compares, all thresholds at
+    once), the reconstruction (one select), the add to the predictor and
+    the two-sided clamp (two operations): 6 dependent operations, at 4
+    cycles each (the shortest latency of a dependent f32 operation on
+    Hopper), 24 cycles a sample at the card's highest SM clock.  The step
+    index's own chain runs beside it.  A latency model, not a
     measurement."""
     byte_ms = b * length * 4 * 2 / HBM_BYTES_PER_S * 1e3
     op_ms = b * length * (6 + 5 * (bits - 1)) / F32_FLOPS * 1e3
-    cycles = 2 * 30 + 4 * (4 + 2 * (bits - 1) + 6)
+    cycles = ADPCM_CHAIN_OPS * 4
     return byte_ms, op_ms, length * cycles / (clock_mhz * 1e6) * 1e3
+
+
+ADPCM_CHAIN_OPS = 6   # adpcm_bound_ms: the predictor's dependent operations
+
+
+def adpcm_edge_waves(bits, length=600, seed=12):
+    """(6, length) int16-domain waves that reach the ADPCM recurrence's
+    edges: 0 a full-scale square then silence (the step index falls to 0
+    and stays); 1 a full-scale square (the index rises to 88, remainders of
+    two steps and more); 2 32767 then -32768 (the predictor held at both
+    clamps); 3 each sample exactly on a coder threshold, pred +- k*u with u
+    = step / 2^(bits - 2), the state followed through the JAX body in
+    numpy float32; 4 jumps of +-20000; 5 uniform noise."""
+    from speakerguard_tpu_torch.ops.adpcm import IMA_INDEX_ADJ, IMA_STEPS
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    t = np.arange(length)
+    square = np.where(t % 2 == 0, 32767.0, -32767.0)
+    x = np.zeros((6, length), f32)
+    x[0, :100] = square[:100]
+    x[1] = square
+    x[2, : length // 2], x[2, length // 2:] = 32767.0, -32768.0
+    x[4] = np.where(rng.random(length) < 0.5, 20000.0, -20000.0)
+    x[5] = rng.uniform(-30000, 30000, length)
+    n, k_max = bits - 1, 2 ** (bits - 1) - 1
+    pred, idx = f32(0), 0
+    for i in range(length):
+        step = IMA_STEPS[idx]
+        k = f32(rng.integers(1, k_max + 1))
+        u = step * f32(2.0 ** -(n - 1))
+        while k > 1 and abs(pred) + k * u > 32767:
+            k = f32(k // 2)
+        x[3, i] = pred - k * u if pred > 0 else pred + k * u
+        diff = f32(x[3, i] - pred)
+        rem, code, recon, s = abs(diff), 0, f32(0), step
+        for _ in range(n):
+            bit = rem >= s
+            code = 2 * code + int(bit)
+            rem = f32(rem - s) if bit else rem
+            recon = f32(recon + (s if bit else f32(0)))
+            s = f32(s * f32(0.5))
+        recon = f32(recon + s)
+        pred = f32(min(max(f32(pred + (-recon if diff < 0 else recon)),
+                           -32768.0), 32767.0))
+        idx = int(min(max(idx + IMA_INDEX_ADJ[min(code, 7)], 0), 88))
+    return x
 
 
 def phase_codec_small_reference(torch, clock_mhz):
@@ -2619,10 +2670,15 @@ def phase_codec_small_reference(torch, clock_mhz):
               where the companded value lies within 1e-4 of a half level
               (counted).
       ADPCM   the kernel torch.equal to adpcm_plain on the card at
-              512 x 4,800 samples, and to the CPU plain loop on 8 full 3 s
-              waves; the kernel's ms at 512 x 4,800 and 512 x 48,000, the
-              plain version's on the card at both, the bounds of
-              adpcm_bound_ms.
+              512 x 4,800 samples, and to the CPU plain loop on waves 0-7
+              and 504-511 of the full 3 s batch, for every bits 2..16 at
+              64 x 2,000 and on adpcm_edge_waves; the fused defense
+              (SC.ADPCM: one aminmax, one launch) torch.equal to the
+              unfused composition (_to_scale, the clamp, the int16 kernel,
+              the scaling back) in both domains; the kernel's ms at
+              512 x 4,800 and 512 x 48,000, its cycles a sample, the plain
+              version's on the card at both, the defense's ms fused and
+              unfused, the bounds of adpcm_bound_ms.
       host    OPUS (start hint) and SPEEX (min-L1 search) at 8 x 3 s
               through the stand-in ffmpeg, first on PATH for this phase
               only: the output equal to the stand-in's quantisation, the
@@ -2667,8 +2723,31 @@ def phase_codec_small_reference(torch, clock_mhz):
     torch.cuda.synchronize()
     p_short = A.adpcm_plain(short, 4)
     k_full = A.adpcm(x16, 4)
-    cpu_full = A.adpcm_plain(x16[:8].cpu(), 4)
+    rows = list(range(8)) + list(range(504, 512))
+    cpu_full = A.adpcm_plain(x16[rows].cpu(), 4)
     torch.cuda.synchronize()
+    err = max(float((k_short - p_short).abs().max()),
+              float((k_full[rows].cpu() - cpu_full).abs().max()))
+    # every bits, at 64 x 2,000 and on the edge inputs, against the CPU loop
+    unequal_bits = []
+    for bits in range(2, 17):
+        for case in (x16[:64, :2000], torch.tensor(adpcm_edge_waves(bits),
+                                                   device="cuda")):
+            got = A.adpcm(case.contiguous(), bits).cpu()
+            want = A.adpcm_plain(case.cpu(), bits)
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                unequal_bits.append(bits)
+    # the fused defense against the unfused composition, both domains
+    def unfused_defense(wav):
+        scaled, restore = SC._to_scale(wav)
+        return A.adpcm(torch.clamp(scaled * 32768.0, -32768.0, 32767.0),
+                       4) / 32768.0 * restore
+
+    fused_equal = {domain: bool(torch.equal(SC.ADPCM(wav, 4),
+                                            unfused_defense(wav)))
+                   for domain, wav in (("scale", xc), ("origin", xc * 32768.0))}
+
     byte_ms, op_ms, chain_ms = adpcm_bound_ms(512, 48000, 4, clock_mhz)
     t0 = time.perf_counter()
     A.adpcm_plain(x16, 4)
@@ -2677,23 +2756,29 @@ def phase_codec_small_reference(torch, clock_mhz):
     adpcm = {"codec": "ADPCM", "bits": 4, "shape": list(x.shape),
              "equal_to_plain_card_512x4800": bool(torch.equal(k_short,
                                                               p_short)),
-             "equal_to_plain_cpu_8x48000": bool(torch.equal(
-                 k_full[:8].cpu(), cpu_full)),
-             "max_abs_err": max(float((k_short - p_short).abs().max()),
-                                float((k_full[:8].cpu()
-                                       - cpu_full).abs().max())),
+             "equal_to_plain_cpu_waves_0_7_504_511": bool(torch.equal(
+                 k_full[rows].cpu(), cpu_full)),
+             "unequal_bits_64x2000_or_edges": sorted(set(unequal_bits)),
+             "fused_defense_equal_to_unfused": fused_equal,
+             "max_abs_err": err,
              "ms": cuda_ms(lambda: A.adpcm(x16, 4), 2, 10),
              "ms_512x4800": cuda_ms(lambda: A.adpcm(short, 4), 2, 10),
              "plain_ms": plain_full_ms,
              "plain_ms_512x4800": cuda_ms(lambda: A.adpcm_plain(short, 4),
                                           0, 1),
              "defense_ms": cuda_ms(lambda: SC.ADPCM(xc, 4), 2, 10),
+             "defense_unfused_ms": cuda_ms(lambda: unfused_defense(xc), 2,
+                                           10),
              "bound_bytes_ms": byte_ms, "bound_ops_ms": op_ms,
-             "bound_chain_ms": chain_ms, "sm_clock_max_mhz": clock_mhz,
+             "bound_chain_ms": chain_ms, "chain_ops": ADPCM_CHAIN_OPS,
+             "sm_clock_max_mhz": clock_mhz,
              "binds": ("serial chain" if chain_ms > max(byte_ms, op_ms)
                        else "bytes" if byte_ms >= op_ms else "operations")}
+    adpcm["cycles_per_sample"] = (adpcm["ms"] * 1e-3 * clock_mhz * 1e6
+                                  / 48000)
     adpcm["ok"] = (adpcm["equal_to_plain_card_512x4800"]
-                   and adpcm["equal_to_plain_cpu_8x48000"])
+                   and adpcm["equal_to_plain_cpu_waves_0_7_504_511"]
+                   and not unequal_bits and all(fused_equal.values()))
     del x16, short, k_short, p_short, k_full, cpu_full
 
     # the host codecs through the stand-in ffmpeg
@@ -4538,7 +4623,10 @@ def main(argv):
         "plain_ms": adpcm_rec["plain_ms"], "bound_ms": ad_bound,
         "bound_by": ad_by, "library_ms": None,
         "bound_chain_ms": adpcm_rec["bound_chain_ms"],
-        "binds": adpcm_rec["binds"]})
+        "binds": adpcm_rec["binds"],
+        "cycles_per_sample": adpcm_rec["cycles_per_sample"],
+        "ms_512x4800": adpcm_rec["ms_512x4800"],
+        "defense_ms": adpcm_rec["defense_ms"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

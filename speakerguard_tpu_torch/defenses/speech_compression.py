@@ -15,8 +15,9 @@ realignment and zero-pad of short outputs; then copy back.  Without an
 ffmpeg on PATH they raise at call time, as the reference does.
 
 MULAW (G.711 companding) is elementwise torch.  ADPCM (IMA, DVI4) is a
-serial recurrence over time: ``ops/adpcm.py`` runs it as the CUDA kernel
-``csrc/adpcm.cu`` on a CUDA tensor, as its plain torch loop on a CPU one.
+serial recurrence over time: ``ops/adpcm.py`` runs it, with the defense's
+domain scaling fused in, as the CUDA kernel ``csrc/adpcm.cu`` on a CUDA
+tensor, as its plain torch loop on a CPU one.
 """
 
 import functools
@@ -191,14 +192,13 @@ def _mulaw_nondiff(audio, mu: float):
 
 
 def _adpcm_nondiff(audio, bits: int):
-    """IMA ADPCM encode + decode over the time axis (ops/adpcm.py).
+    """IMA ADPCM encode + decode over the time axis (ops/adpcm.py): the
+    batch-wide domain sniff, the int16 scaling and clamp, the round trip
+    and the scaling back, one reduction and one kernel launch on the card.
     audio: (B, L), (L,) or (B, 1, L); bits=4 is the standard nibble
     coder."""
     wav, restore_shape = _flatten_wav(audio)
-    x, restore = _to_scale(wav)
-    x16 = torch.clamp(x * ABS_MAX, -ABS_MAX, ABS_MAX - 1.0)  # int16 domain
-    decoded = adpcm(x16, bits)
-    return restore_shape(decoded / ABS_MAX * restore)
+    return restore_shape(adpcm.scaled(wav, bits))
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,17 +5,27 @@ The JAX package runs this codec as a ``lax.scan`` over time
 XLA compiles to one device loop; it is no Pallas kernel.  The step is a
 serial recurrence over the samples of a wave, on a few scalars of state
 (the predictor and the step index), so eager PyTorch would pay ~20 small
-launches a sample.  ``csrc/adpcm.cu`` runs the recurrence instead: one
-thread per wave, a sequential loop over the samples.
+launches a sample.  ``csrc/adpcm.cu`` runs the recurrence instead, one
+lane of a warp a wave; a second warp of the block stages the waves through
+shared memory with coalesced copies, so no global load or store sits on
+the chain.  Its coder is the closed form of the bit-serial taps where that
+is exact and cheaper (bits <= ``CLOSED_FORM_MAX_BITS``: the code is the
+count of the thresholds k*u that the remainder reaches), and the next step
+and index are selected by the code from five candidates read ahead, each
+lane reading its own copy of the step table.
 
 ``adpcm(x16, bits)`` takes (B, L) float32 samples already clipped to the
 int16 range and returns the decoded (B, L) float32 samples, the
-predictor after each step.  On a CUDA tensor it launches the kernel; on a
-CPU tensor it runs ``adpcm_plain``.  Both run the JAX body's float32
-operations in its order, so the kernel equals the plain version bit for
-bit: every product in the step is exact (by a bit of 0 or 1, or by 2 or
-0.5), and the kernel writes each add with ``__fadd_rn`` so that nvcc
-cannot contract it into a fused multiply-add.
+predictor after each step.  ``adpcm.scaled(wav, bits)`` is the ADPCM
+defense's whole round trip on audio in either domain: the batch-wide
+domain sniff (one ``torch.aminmax``, read by the kernel on the device),
+then one launch that scales and clamps on load and scales back on store
+(``adpcm_scaled_plain`` is the same in torch).  On a CUDA tensor each
+launches the kernel; on a CPU tensor each runs its plain version.  Both
+run the JAX body's float32 operations in its order, so the kernel equals
+the plain version bit for bit: every product in the step is exact, and the
+kernel writes each add with ``__fadd_rn`` so that nvcc cannot contract it
+into a fused multiply-add.
 """
 
 import ctypes
@@ -38,6 +48,9 @@ IMA_STEPS = np.array([
     6484, 7132, 7845, 8630, 9493, 10442, 11487, 12635, 13899, 15289,
     16818, 18500, 20350, 22385, 24623, 27086, 29794, 32767], np.float32)
 IMA_INDEX_ADJ = np.array([-1, -1, -1, -1, 2, 4, 6, 8], np.float32)
+# csrc/adpcm.cu's kClosedMaxBits: it codes bits 2..4 in closed form and taps
+# the other bits serially (a CPU test holds the two to each other)
+CLOSED_FORM_MAX_BITS = 4
 
 
 def _check(x16: torch.Tensor, bits: int):
@@ -88,12 +101,29 @@ def adpcm_plain(x16: torch.Tensor, bits: int = 4) -> torch.Tensor:
     return out
 
 
+def adpcm_scaled_plain(wav: torch.Tensor, bits: int = 4) -> torch.Tensor:
+    """The ADPCM defense's round trip (``defenses/speech_compression.py``
+    ``_adpcm_nondiff`` on a (B, L) batch) in torch: the batch-wide domain
+    sniff, ``* factor``, ``* ABS_MAX`` and the int16 clamp, ``adpcm_plain``,
+    then ``/ ABS_MAX`` and ``* restore``."""
+    _check(wav, bits)
+    lo, hi = torch.aminmax(wav)
+    big = torch.logical_or(hi > 2.0, lo < -2.0)
+    factor = torch.where(big, wav.new_tensor(1.0 / ABS_MAX),
+                         wav.new_tensor(1.0))
+    restore = torch.where(big, wav.new_tensor(ABS_MAX), wav.new_tensor(1.0))
+    x16 = torch.clamp(wav * factor * ABS_MAX, -ABS_MAX, ABS_MAX - 1.0)
+    return adpcm_plain(x16, bits) / ABS_MAX * restore
+
+
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # The argument types of csrc/adpcm.cu's C entry points, in order (a CPU test
 # holds them to the source's extern "C" declarations); each returns an int.
 ARGTYPES = {
     # x16, out, batch, length, bits, stream
     "sg_adpcm": [_PTR, _PTR, _INT, _INT, _INT, _PTR],
+    # wav, out, wav_min, wav_max, batch, length, bits, stream
+    "sg_adpcm_scaled": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "sg_adpcm_n_steps": [],
 }
 
@@ -114,7 +144,8 @@ def _lib():
 
 
 class _Adpcm(KernelWrapper):
-    """``adpcm(x16, bits=4) -> decoded``, counting its calls."""
+    """``adpcm(x16, bits=4) -> decoded`` and ``adpcm.scaled(wav, bits=4)``,
+    counting their calls."""
 
     name = "adpcm"
 
@@ -123,12 +154,30 @@ class _Adpcm(KernelWrapper):
         if not self.route(x16):
             return adpcm_plain(x16, bits)
         x16 = x16.contiguous()
-        b, n = x16.shape
         out = torch.empty_like(x16)
         with torch.cuda.device(x16.device):
-            rc = _lib().sg_adpcm(x16.data_ptr(), out.data_ptr(), b, n,
-                                 int(bits),
+            rc = _lib().sg_adpcm(x16.data_ptr(), out.data_ptr(),
+                                 *x16.shape, int(bits),
                                  torch.cuda.current_stream().cuda_stream)
+        check_rc(rc, self.name)
+        self.launches += 1
+        return out
+
+    def scaled(self, wav: torch.Tensor, bits: int = 4) -> torch.Tensor:
+        """The ADPCM defense on (B, L) audio in either domain: one
+        ``torch.aminmax`` and one launch on a CUDA tensor, no host sync;
+        ``adpcm_scaled_plain`` on a CPU one."""
+        _check(wav, bits)
+        if not self.route(wav):
+            return adpcm_scaled_plain(wav, bits)
+        wav = wav.contiguous()
+        lo, hi = torch.aminmax(wav)
+        out = torch.empty_like(wav)
+        with torch.cuda.device(wav.device):
+            rc = _lib().sg_adpcm_scaled(
+                wav.data_ptr(), out.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                *wav.shape, int(bits),
+                torch.cuda.current_stream().cuda_stream)
         check_rc(rc, self.name)
         self.launches += 1
         return out

@@ -10,7 +10,16 @@ Bars:
   gradient exactly 1;
 - ADPCM: ``adpcm_plain`` (the plain loop the CPU runs) ``torch.equal`` to
   JAX's scan, on uniform noise, on a speech-like wave, on origin-domain
-  input (the batch-wide scale sniff) and at 3 and 5 bits;
+  input (the batch-wide scale sniff) and at 3 and 5 bits, the defense
+  through ``adpcm.scaled``'s plain version; a numpy float32 mirror of the
+  kernel's step (the closed-form coder where the kernel runs it, the
+  five-candidate step select, the arithmetic index adjustment, an int
+  index) ``array_equal`` to ``adpcm_plain`` for bits 2..16 on inputs that
+  reach each edge of the recurrence (a remainder exactly on a threshold
+  k*u, a remainder of twice the step or more, the predictor held at both
+  clamps, the index held at 0 and at 88); the closed-form coder equal to
+  the serial taps on every threshold and its neighbours through 10 bits,
+  and shown to differ from them from 11 bits on;
 - the seven ffmpeg codecs exactly equal to JAX's, both packages calling
   the deterministic stand-in ffmpeg of tests/test_speech_compression.py
   (it quantises to 512-step levels and pads each decoded wave by codec, so
@@ -19,7 +28,8 @@ Bars:
   would leave both packages an empty slice): the thread pool,
   origin-domain input, AMR's validation and the BPDA gradient;
 - the kernel (``cuda``, skipped without a card) ``torch.equal`` to the
-  plain loop on the card.
+  plain loop on the card, for bits 2..16 on ragged and edge shapes and on
+  the edge inputs, and the fused defense to the unfused composition.
 """
 
 import ctypes
@@ -169,19 +179,264 @@ def test_adpcm_tables_match_the_source():
     np.testing.assert_array_equal(A.IMA_INDEX_ADJ, JSC._IMA_INDEX_ADJ)
 
 
+def test_adpcm_closed_form_bits_match_the_source():
+    src = (CSRC / "adpcm.cu").read_text()
+    bits = int(re.search(r"kClosedMaxBits = (\d+);", src).group(1))
+    assert bits == A.CLOSED_FORM_MAX_BITS
+
+
+@pytest.mark.parametrize("domain", ["scale", "origin"])
+def test_adpcm_scaled_plain_equals_the_composition(domain):
+    """``adpcm.scaled``'s plain version: the defense's sniff, scaling and
+    clamps around ``adpcm_plain``, as ``_to_scale`` composes them."""
+    x = _wave(11, (3, 400), -0.7, 0.7) * (32768.0 if domain == "origin"
+                                          else 1.0)
+    xt = torch.tensor(x)
+    scaled, restore = SC._to_scale(xt)
+    x16 = torch.clamp(scaled * 32768.0, -32768.0, 32767.0)
+    want = A.adpcm_plain(x16, 4) / 32768.0 * restore
+    assert torch.equal(A.adpcm_scaled_plain(xt, 4), want)
+    A.adpcm.reset_counts()
+    assert torch.equal(A.adpcm.scaled(xt, 4), want)
+    assert (A.adpcm.plain_calls, A.adpcm.launches) == (1, 0)
+
+
+# ---- the kernel's step, mirrored in numpy ----------------------------------
+
+F32 = np.float32
+CAND_OFFSETS = np.array([-1, 2, 4, 6, 8])   # the five index moves
+
+
+def _index_adjustment(c):
+    """IMA_INDEX_ADJ[c] for c = min(code, 7), as the kernel computes it."""
+    return np.where(c < 4, -1, 2 * (c - 3))
+
+
+def _closed_coder(rem, neg, u, n):
+    """code = #{k in 1..2^n-1 : rem >= k*u}, the 0/1 compares summed
+    pairwise (the kernel's order); recon = code * (+-u) + (+-u/2), the
+    product exact."""
+    k_max = 2 ** n - 1
+    a = (rem[:, None] >= u[:, None] * np.arange(1, k_max + 1, dtype=F32)
+         ).astype(F32)
+    w = 1
+    while w < k_max:
+        for i in range(0, k_max - w, 2 * w):
+            a[:, i] = a[:, i] + a[:, i + w]
+        w *= 2
+    su = np.where(neg, -u, u)
+    return a[:, 0].astype(np.int64), a[:, 0] * su + su * F32(0.5)
+
+
+def _serial_coder(rem, neg, s, n):
+    """The JAX body's bit-serial taps, the code an int."""
+    code = np.zeros(rem.shape, np.int64)
+    acc = np.zeros_like(rem)
+    for _ in range(n):
+        bit = rem >= s
+        code = 2 * code + bit
+        rem = np.where(bit, rem - s, rem)
+        acc = acc + np.where(bit, s, F32(0))
+        s = s * F32(0.5)
+    recon = acc + s
+    return code, np.where(neg, -recon, recon)
+
+
+class _Mirror:
+    """csrc/adpcm.cu's step in numpy float32 over (B,) waves: the closed-form
+    coder for bits <= CLOSED_FORM_MAX_BITS (the code a sum of 0/1 compares,
+    recon = code * (+-u) + (+-u/2)) and the serial taps above; the next
+    step and index selected by ge[k] = [min(code, 7) >= k], k = 4..7, as the
+    first of the five candidates plus the differences that ge selects (the
+    table's rows, steps pre-scaled to u where the closed form runs); the
+    index an int, carried as a float plus 2^23 and read back from its bits.
+    ``hits`` counts the samples that reached each edge of the recurrence."""
+
+    def __init__(self, b, bits):
+        self.n = bits - 1
+        self.closed = bits <= A.CLOSED_FORM_MAX_BITS
+        self.to_u = F32(2.0 ** -(self.n - 1))
+        scale = self.to_u if self.closed else F32(1)
+        self.cand_idx = np.clip(np.arange(89)[:, None] + CAND_OFFSETS, 0, 88)
+        cand_step = A.IMA_STEPS[self.cand_idx] * scale
+        # each row: the first candidate, then the differences to the next
+        self.step_words = np.diff(cand_step, axis=1, prepend=F32(0))
+        self.idx_words = np.diff(self.cand_idx.astype(F32) + F32(2 ** 23),
+                                 axis=1, prepend=F32(0))
+        self.pred = np.zeros(b, F32)
+        self.idx = np.zeros(b, np.int64)
+        self.step = np.full(b, A.IMA_STEPS[0] * scale, F32)
+        self.hits = {"on_threshold": 0, "rem_2s": 0, "pred_max": 0,
+                     "pred_min": 0, "idx_0": 0, "idx_88": 0}
+
+    @property
+    def u(self):
+        return self.step if self.closed else self.step * self.to_u
+
+    def __call__(self, x):
+        diff = x - self.pred
+        neg, rem = diff < 0, np.abs(diff)
+        u = self.u
+        k = np.arange(1, 2 ** self.n, dtype=F32)
+        self.hits["on_threshold"] += int(
+            (rem[:, None] == u[:, None] * k).any(axis=1).sum())
+        self.hits["rem_2s"] += int((rem >= 2 * (u * F32(2 ** (self.n - 1))))
+                                   .sum())
+        coder = _closed_coder if self.closed else _serial_coder
+        code, recon = coder(rem, neg, self.step, self.n)
+        self.pred = np.clip(self.pred + recon, F32(-32768), F32(32767))
+        c = np.minimum(code, 7)
+        ge = (c[:, None] >= np.arange(4, 8)).astype(F32)   # set in order
+        ones = np.ones((len(c), 1), F32)
+        sel = np.concatenate([ones, ge], axis=1)
+
+        def pick(words):  # the first word plus the selected differences
+            w = words[self.idx] * sel
+            return (w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3]) + w[:, 4]
+
+        nxt = (pick(self.idx_words).view(np.int32) - 0x4B000000).astype(
+            np.int64)
+        slot = np.where(c < 4, 0, c - 3)
+        assert (CAND_OFFSETS[slot] == _index_adjustment(c)).all()
+        assert (nxt == self.cand_idx[self.idx, slot]).all()
+        assert (nxt == np.clip(self.idx + _index_adjustment(c), 0, 88)).all()
+        self.step = pick(self.step_words)
+        self.idx = nxt
+        for key, hit in (("pred_max", self.pred == 32767),
+                         ("pred_min", self.pred == -32768),
+                         ("idx_0", self.idx == 0), ("idx_88", self.idx == 88)):
+            self.hits[key] += int(hit.sum())
+        return self.pred
+
+
+def _run_mirror(x16, bits):
+    m = _Mirror(x16.shape[0], bits)
+    out = np.stack([m(x16[:, t]) for t in range(x16.shape[1])], axis=1)
+    return out, m.hits
+
+
+def _edge_waves(bits, length=600, seed=12):
+    """(6, length) int16-domain waves that reach the recurrence's edges:
+    0 a full-scale square then silence (the index falls to 0 and stays);
+    1 a full-scale square (the index rises to 88, remainders >= 2 steps);
+    2 32767 then -32768 (the predictor held at both clamps); 3 each sample
+    on a threshold, pred +- k*u for a random k (the state followed through
+    the mirror); 4 jumps of +-20000; 5 uniform noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(length)
+    square = np.where(t % 2 == 0, 32767.0, -32767.0)
+    x = np.zeros((6, length), F32)
+    x[0, :100] = square[:100]
+    x[1] = square
+    x[2, : length // 2], x[2, length // 2:] = 32767.0, -32768.0
+    x[4] = np.where(rng.random(length) < 0.5, 20000.0, -20000.0)
+    x[5] = rng.uniform(-30000, 30000, length)
+    m = _Mirror(1, bits)
+    k_max = 2 ** (bits - 1) - 1
+    for i in range(length):
+        pred, u = m.pred[0], m.u[0]
+        k = F32(rng.integers(1, k_max + 1))
+        while k > 1 and abs(pred) + k * u > 32767:
+            k = F32(k // 2)
+        x[3, i] = pred - k * u if pred > 0 else pred + k * u
+        m(x[3, i:i + 1])
+    return x
+
+
+@pytest.mark.parametrize("bits", range(2, 17))
+def test_adpcm_mirror_equals_plain_on_edge_inputs(bits):
+    x16 = _edge_waves(bits)
+    want = A.adpcm_plain(torch.tensor(x16), bits).numpy()
+    got, hits = _run_mirror(x16, bits)
+    np.testing.assert_array_equal(got, want)
+    assert hits["rem_2s"] > 0 and hits["idx_0"] > 400
+    if bits <= 10:   # pred +- k*u is exact where k*u is
+        assert hits["on_threshold"] >= 500, hits
+    if bits >= 4:    # 2 and 3 bits never raise the index
+        assert min(hits["idx_88"], hits["pred_max"], hits["pred_min"]) > 0
+
+
+@pytest.mark.parametrize("bits", range(2, 17))
+def test_adpcm_closed_form_coder_exact_through_ten_bits(bits):
+    """The closed-form coder against the serial taps on every threshold
+    k*u, its two float neighbours, remainders of 2 steps and more, and 0:
+    equal through 10 bits, where (2^n - 1) x the step's 15 bits fit in 24,
+    over all 89 steps; from 11 bits on the thresholds round, and a
+    remainder on a rounded-down threshold counts one code too many."""
+    n = bits - 1
+    k = np.arange(1, 2 ** n, dtype=F32)
+    steps = A.IMA_STEPS if bits <= 10 else A.IMA_STEPS[-4:]
+    differ = 0
+    for step in steps:
+        u = F32(step * F32(2.0 ** -(n - 1)))
+        th = u * k
+        rem = np.unique(np.concatenate([
+            th, np.nextafter(th, F32(0)), np.nextafter(th, F32(np.inf)),
+            F32(step) * np.array([2, 2.5, 3], F32), [F32(0), F32(65535)]]))
+        neg = np.arange(rem.size) % 2 == 1
+        want_code, want_recon = _serial_coder(
+            rem, neg, np.full(rem.shape, F32(step)), n)
+        code = np.searchsorted(th, rem, side="right")  # #{k : rem >= k*u}
+        recon = code.astype(F32) * u + u * F32(0.5)
+        recon = np.where(neg, -recon, recon)
+        if bits <= 10:
+            np.testing.assert_array_equal(code, want_code)
+            np.testing.assert_array_equal(recon, want_recon)
+            if bits <= A.CLOSED_FORM_MAX_BITS:   # and the kernel's order
+                got_code, got_recon = _closed_coder(
+                    rem, neg, np.full(rem.shape, u), n)
+                np.testing.assert_array_equal(got_code, want_code)
+                np.testing.assert_array_equal(got_recon, want_recon)
+        differ += int((code != want_code).sum())
+    assert (differ == 0) == (bits <= 10), differ
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(5, 1000), (64, 4800), (33, 7)])
-def test_cuda_adpcm_kernel_equals_plain(shape):
+@pytest.mark.parametrize("bits", range(2, 17))
+@pytest.mark.parametrize("shape", [(5, 1000), (64, 4800), (33, 7), (1, 1),
+                                   (1, 300), (40, 65), (0, 10), (3, 0)])
+def test_cuda_adpcm_kernel_equals_plain(shape, bits):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     x16 = torch.tensor(np.clip(_wave(6, shape, -0.6, 0.6) * 32768.0, -32768,
                                32767), device="cuda")
     A.adpcm.reset_counts()
-    got = A.adpcm(x16, 4)
+    got = A.adpcm(x16, bits)
     torch.cuda.synchronize()
     assert A.adpcm.launches == 1 and A.adpcm.plain_calls == 0
-    assert torch.equal(got, A.adpcm_plain(x16, 4))
-    assert torch.equal(got.cpu(), A.adpcm_plain(x16.cpu(), 4))
+    assert got.shape == x16.shape
+    assert torch.equal(got, A.adpcm_plain(x16, bits))
+    assert torch.equal(got.cpu(), A.adpcm_plain(x16.cpu(), bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", range(2, 17))
+def test_cuda_adpcm_kernel_equals_plain_on_edge_inputs(bits):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x16 = _edge_waves(bits)
+    got = A.adpcm(torch.tensor(x16, device="cuda"), bits).cpu().numpy()
+    np.testing.assert_array_equal(
+        got, A.adpcm_plain(torch.tensor(x16), bits).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["scale", "origin"])
+def test_cuda_adpcm_defense_fused_equals_the_composition(domain):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.tensor(_wave(13, (70, 3000), -0.7, 0.7)
+                     * (32768.0 if domain == "origin" else 1.0),
+                     device="cuda")
+    scaled, restore = SC._to_scale(x)
+    x16 = torch.clamp(scaled * 32768.0, -32768.0, 32767.0)
+    want = A.adpcm(x16, 4) / 32768.0 * restore
+    A.adpcm.reset_counts()
+    got = SC.ADPCM(x, 4)
+    torch.cuda.synchronize()
+    assert A.adpcm.launches == 1 and A.adpcm.plain_calls == 0
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), A.adpcm_scaled_plain(x.cpu(), 4))
 
 
 # ---- the ffmpeg codecs -----------------------------------------------------
