@@ -269,7 +269,7 @@ Phases, one JSON line each:
               the same speakers x 3 s: 2 epochs with validation, a resume
               of 1 epoch from the final pickle (-start_epoch 2), 1 epoch
               with -ckpt_backend dcp and 1 more resumed from its directory;
-              each run's seconds from a StageTimer and ms a step (the
+              each run's wall seconds and ms a step (the
               median of every step after the first epoch, whose two
               steps autotune cuDNN for their shapes); the loss falls over the first run,
               the checkpoints' epochs and the resumed logs continue the
@@ -4131,7 +4131,7 @@ def phase_train_clis(torch, wrappers):
     the 251 test waves, then one epoch resumed from its final pickle
     (-start_epoch 2), then one epoch with -ckpt_backend dcp and one more
     resumed from its directory; adver_train: PGD-10, ratio 0.5, 1 epoch,
-    -evaluate_adver.  A StageTimer times each run.  Checks: the batch sizes,
+    -evaluate_adver.  A wall clock times each run.  Checks: the batch sizes,
     finite losses that fall over the natural run, the checkpoints' epochs
     (read back by the port), the resumed runs' epochs in their logs, the
     dcp directories, every launch count and plain call 0.  Returns {phase:
@@ -4139,19 +4139,24 @@ def phase_train_clis(torch, wrappers):
     import tempfile
     from speakerguard_tpu_torch.cli import adver_train, natural_train
     from speakerguard_tpu_torch.models.training import load_checkpoint
-    from speakerguard_tpu_torch.utils.profiling import StageTimer
-    timer = StageTimer()
+    stages_s = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        stages_s[name] = time.perf_counter() - t0
+        return res
+
     out = {}
     with tempfile.TemporaryDirectory() as root:
-        with timer.stage("write_world"):
-            write_train_world(root)
+        stage("write_world", lambda: write_train_world(root))
         enc = os.path.join(root, "label_encoder.txt")
         common = ["-root", root, "-label_encoder", enc, "-batch_size",
                   str(TRAIN_BATCH), "-wav_length", str(TRAIN_LEN)]
         base = os.path.join(root, "model_file", "audionet-natural")
         dbase = os.path.join(root, "model_file", "audionet-natural-dcp")
         runs = {}
-        for stage, argv in (
+        for name, argv in (
                 ("natural_2_epochs", ["-num_epoches", "2", "-model_ckpt",
                                       base]),
                 ("natural_resume_pickle", [
@@ -4166,9 +4171,8 @@ def phase_train_clis(torch, wrappers):
                     "-ckpt_backend", "dcp", "-ori_model_ckpt", dbase,
                     "-evaluate_per_epoch", "0", "-model_ckpt",
                     dbase + "-resumed"])):
-            with timer.stage(stage):
-                runs[stage] = _cli_call(torch, wrappers, natural_train,
-                                        common + argv)
+            runs[name] = stage(name, lambda: _cli_call(
+                torch, wrappers, natural_train, common + argv))
         first = runs["natural_2_epochs"][0]
         with open(base + "-resumed.log") as f:
             resumed_log = f.read().splitlines()
@@ -4180,8 +4184,7 @@ def phase_train_clis(torch, wrappers):
         plain = {k: sum(r[4][k] for r in runs.values()) for k in wrappers}
         rec = {"phase": "train_cli_natural", "classes": TRAIN_CLASSES,
                "batch": TRAIN_BATCH, "samples": TRAIN_LEN,
-               "stages_s": dict(timer.totals),
-               "report": timer.report().splitlines(),
+               "stages_s": dict(stages_s),
                # after the first epoch, whose two steps autotune cuDNN
                "ms_per_step": 1e3 * statistics.median(
                    first["step_s"][2:] + [t for k, r in runs.items()
@@ -4214,15 +4217,14 @@ def phase_train_clis(torch, wrappers):
         out["train_cli_natural"] = launches
 
         abase = os.path.join(root, "model_file", "audionet-adver")
-        with timer.stage("adver_1_epoch"):
-            res, _, _, launches, plain = _cli_call(
-                torch, wrappers, adver_train,
-                common + ["-num_epoches", "1", "-max_iter", "10", "-ratio",
-                          "0.5", "-evaluate_adver", "-model_ckpt", abase])
+        res, _, _, launches, plain = stage("adver_1_epoch", lambda: _cli_call(
+            torch, wrappers, adver_train,
+            common + ["-num_epoches", "1", "-max_iter", "10", "-ratio",
+                      "0.5", "-evaluate_adver", "-model_ckpt", abase]))
         rec = {"phase": "train_cli_adver", "classes": TRAIN_CLASSES,
                "batch": TRAIN_BATCH, "samples": TRAIN_LEN,
                "attack": "PGD-10", "ratio": 0.5,
-               "seconds": timer.totals["adver_1_epoch"],
+               "seconds": stages_s["adver_1_epoch"],
                # one epoch: each step is its batch shape's first, so its
                # time includes cuDNN's autotuning (the steady step is
                # slice_train_adver's)

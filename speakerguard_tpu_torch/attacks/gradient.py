@@ -35,6 +35,11 @@ defenses has no dithered frontend and rejects it.  Under ``mesh=`` (see
 attacks/base.py) both hooks are asked for the global chunk's draw, of
 which the rank takes its rows, and the restarts' whole-batch success
 rates are global.
+
+Spans (utils/profiling.annotate; recorded only under a profiler):
+``sg.pgd.call`` around ``attack``, and in each restart ``sg.pgd.context``
+(the fast context), ``sg.pgd.iter`` (each iteration) and ``sg.pgd.final``
+(the exact evaluation and the vote); the model's layer spans nest inside.
 """
 
 import torch
@@ -44,6 +49,7 @@ from speakerguard_tpu_torch.attacks.base import (Attack, make_generator,
                                                  normalize_wav_input)
 from speakerguard_tpu_torch.attacks.losses import (compare, majority_vote,
                                                    resolve_loss)
+from speakerguard_tpu_torch.utils.profiling import annotate
 
 
 class PGD(Attack):
@@ -114,7 +120,8 @@ class PGD(Attack):
         exact final evaluation."""
         model = self.model
         # dither-free, once per restart
-        ctx = model.fast_context(x, shard=self._shard)
+        with annotate("sg.pgd.context"):
+            ctx = model.fast_context(x, shard=self._shard)
         eot_run = eot(lambda xx, g: model.score(xx, rng=g, fast=True,
                                                 fast_ctx=ctx),
                       self.loss_fn, model.threshold, self.EOT_size)
@@ -126,27 +133,30 @@ class PGD(Attack):
             # the reference does NOT clip the init point (PGD.py:59-61)
             xx = x + self._init_noise(x, gen, restart)
         for it in range(self.max_iter):
-            _, _, grad, _ = eot_run(xx, y, self._rngs(gen, restart, it))
-            xx = xx + self.step_size * torch.sign(grad) * self.grad_sign
-            xx = torch.clamp(xx, lower, upper)
+            with annotate("sg.pgd.iter"):
+                _, _, grad, _ = eot_run(xx, y, self._rngs(gen, restart, it))
+                xx = xx + self.step_size * torch.sign(grad) * self.grad_sign
+                xx = torch.clamp(xx, lower, upper)
         # the final evaluation draws as EOT repeat 0 of iteration max_iter
-        scores, loss, decisions = eot_ng(xx, y,
-                                         self._rngs(gen, restart,
-                                                    self.max_iter))
-        predict = majority_vote(decisions, scores.shape[-1])
+        with annotate("sg.pgd.final"):
+            scores, loss, decisions = eot_ng(xx, y,
+                                             self._rngs(gen, restart,
+                                                        self.max_iter))
+            predict = majority_vote(decisions, scores.shape[-1])
         return xx, predict, loss
 
     def attack(self, x, y, rng=None):
         """x: (B, L) | (B, 1, L) | (L,) scale-domain audio; y: (B,) labels;
         rng: torch.Generator, int seed or None.
         Returns (adversarial audio shaped like x, per-sample success list)."""
-        dev = self.model.device
-        x, restore = normalize_wav_input(x, device=dev)
-        y = torch.as_tensor(y, device=dev)
-        gen = make_generator(rng, dev)
-        adver, success = self.run_batched(self._attack_whole, x, y, gen,
-                                          self.batch_size)
-        return restore(adver), success
+        with annotate("sg.pgd.call"):
+            dev = self.model.device
+            x, restore = normalize_wav_input(x, device=dev)
+            y = torch.as_tensor(y, device=dev)
+            gen = make_generator(rng, dev)
+            adver, success = self.run_batched(self._attack_whole, x, y, gen,
+                                              self.batch_size)
+            return restore(adver), success
 
     def _attack_whole(self, x, y, gen):
         if self.num_random_init > 1:

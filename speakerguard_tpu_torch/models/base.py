@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from speakerguard_tpu_torch.utils import kaldi_io
+from speakerguard_tpu_torch.utils.profiling import annotate
 from speakerguard_tpu_torch.utils.ranges import check_input_range
 
 NEG_INF = float("-inf")
@@ -233,19 +234,22 @@ class SRSModel(nn.Module):
     # such flag: decisions are always exact.
     def compute_feat(self, x, flag=1, rng=None, fast=False):
         assert flag in self.allowed_flags and flag != 0
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        wav = check_input_range(as_batch_wav(x), range_type=self.range_type)
-        feats = self._raw(wav, rng=rng, fast=fast)
-        for f in range(1, flag):
-            feats = self._feat_step(feats, f)
-        return feats
+        with annotate("sg.frontend"):
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            wav = check_input_range(as_batch_wav(x),
+                                    range_type=self.range_type)
+            feats = self._raw(wav, rng=rng, fast=fast)
+            for f in range(1, flag):
+                feats = self._feat_step(feats, f)
+            return feats
 
     def comput_feat_from_feat(self, feats, ori_flag=1, des_flag=2):
         assert ori_flag in self.allowed_flags and des_flag in self.allowed_flags
         assert 0 < ori_flag < des_flag
-        for f in range(ori_flag, des_flag):
-            feats = self._feat_step(feats, f)
-        return feats
+        with annotate("sg.frontend"):
+            for f in range(ori_flag, des_flag):
+                feats = self._feat_step(feats, f)
+            return feats
 
     def embedding(self, x, flag=0, rng=None, fast=False, fast_ctx=None):
         assert flag in self.allowed_flags

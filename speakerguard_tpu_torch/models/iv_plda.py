@@ -36,6 +36,7 @@ from speakerguard_tpu_torch.ops.cmvn import sliding_cmvn
 from speakerguard_tpu_torch.ops.delta import add_delta
 from speakerguard_tpu_torch.ops.kaldi_mfcc import IV_PLDA_MFCC, kaldi_mfcc
 from speakerguard_tpu_torch.utils import kaldi_io
+from speakerguard_tpu_torch.utils.profiling import annotate
 
 
 class IvPldaParams(NamedTuple):
@@ -95,13 +96,14 @@ def load_iv_plda_params(fgmm_file, extractor_file, plda_file, mean_file,
 def process_emb(params: IvPldaParams, ivec: torch.Tensor) -> torch.Tensor:
     """mean-sub -> LDA affine reduce -> length-norm -> PLDA transform
     (reference iv_plda.py:411-443), batched over (B, IV)."""
-    x = ivec - params.emb_mean
-    w, b = params.transform_mat[:, :-1], params.transform_mat[:, -1]
-    x = x @ w.T + b
-    x = iv_mod.length_normalize(x, math.sqrt(float(x.shape[-1])))
-    return plda_mod.transform_ivector(params.plda, x, num_examples=1,
-                                      simple_length_norm=False,
-                                      normalize_length=True)
+    with annotate("sg.plda"):
+        x = ivec - params.emb_mean
+        w, b = params.transform_mat[:, :-1], params.transform_mat[:, -1]
+        x = x @ w.T + b
+        x = iv_mod.length_normalize(x, math.sqrt(float(x.shape[-1])))
+        return plda_mod.transform_ivector(params.plda, x, num_examples=1,
+                                          simple_length_norm=False,
+                                          normalize_length=True)
 
 
 class IvFastContext(NamedTuple):
@@ -116,11 +118,13 @@ def make_fast_context(params: IvPldaParams, feats: torch.Tensor,
     """Shared top-K selection from (clean) CMVN features + extractor
     slices.  None when selection is a no-op (K <= 0 or K >= C).
     ``shard``: ``feats`` are this rank's rows (``make_topk_context``)."""
-    g = gmm_mod.make_topk_context(params.fgmm, feats, k, shard)
+    with annotate("sg.gmm_stats"):
+        g = gmm_mod.make_topk_context(params.fgmm, feats, k, shard)
     if g is None:
         return None
-    return IvFastContext(gmm=g,
-                         iv=iv_mod.make_topk_slices(params.extractor, g.sel))
+    with annotate("sg.ivector"):
+        iv = iv_mod.make_topk_slices(params.extractor, g.sel)
+    return IvFastContext(gmm=g, iv=iv)
 
 
 def embedding_from_cmvn(params: IvPldaParams, feats: torch.Tensor,
@@ -140,14 +144,16 @@ def embedding_from_cmvn(params: IvPldaParams, feats: torch.Tensor,
         raise ValueError(
             f"feature dim {feats.shape[-1]} != UBM dim {params.fgmm.dim}; "
             "check num_ceps (features are num_ceps*3 after deltas)")
-    zeroth, first = gmm_mod.zeroth_first_stats(
-        params.fgmm, feats, fast=fast,
-        topk_ctx=None if topk_ctx is None else topk_ctx.gmm,
-        loglike_kernel=loglike_kernel)
-    ivec = iv_mod.extract_ivectors(
-        params.extractor, zeroth, first, fast=fast,
-        topk=None if topk_ctx is None else topk_ctx.iv,
-        spd_solver=spd_solver)
+    with annotate("sg.gmm_stats"):
+        zeroth, first = gmm_mod.zeroth_first_stats(
+            params.fgmm, feats, fast=fast,
+            topk_ctx=None if topk_ctx is None else topk_ctx.gmm,
+            loglike_kernel=loglike_kernel)
+    with annotate("sg.ivector"):
+        ivec = iv_mod.extract_ivectors(
+            params.extractor, zeroth, first, fast=fast,
+            topk=None if topk_ctx is None else topk_ctx.iv,
+            spd_solver=spd_solver)
     return process_emb(params, ivec)
 
 
@@ -232,5 +238,7 @@ class IvPlda(SRSModel):
             return make_fast_context(self.params, feats, fp.gmm_topk, shard)
 
     def _scores_from_emb(self, emb, enroll_embs=None):
-        return scores_from_emb(self.params, emb, self._enrolled(enroll_embs))
+        with annotate("sg.plda"):
+            return scores_from_emb(self.params, emb,
+                                   self._enrolled(enroll_embs))
 

@@ -31,6 +31,7 @@ from speakerguard_tpu_torch.models.tdnn import (TDNNParams,
 from speakerguard_tpu_torch.ops.cmvn import sliding_cmvn
 from speakerguard_tpu_torch.ops.kaldi_mfcc import XV_PLDA_MFCC, kaldi_mfcc
 from speakerguard_tpu_torch.utils import kaldi_io
+from speakerguard_tpu_torch.utils.profiling import annotate
 
 
 class XvPldaParams(NamedTuple):
@@ -80,13 +81,14 @@ def load_xv_plda_params(extractor_ckpt, plda_file, mean_file,
 def process_emb(params: XvPldaParams, emb: torch.Tensor) -> torch.Tensor:
     """mean-sub -> LDA affine -> length-norm -> PLDA transform, the chain
     iv_plda uses (the reference inherits it)."""
-    x = emb - params.emb_mean
-    w, b = params.transform_mat[:, :-1], params.transform_mat[:, -1]
-    x = x @ w.T + b
-    x = iv_mod.length_normalize(x, math.sqrt(float(x.shape[-1])))
-    return plda_mod.transform_ivector(params.plda, x, num_examples=1,
-                                      simple_length_norm=False,
-                                      normalize_length=True)
+    with annotate("sg.plda"):
+        x = emb - params.emb_mean
+        w, b = params.transform_mat[:, :-1], params.transform_mat[:, -1]
+        x = x @ w.T + b
+        x = iv_mod.length_normalize(x, math.sqrt(float(x.shape[-1])))
+        return plda_mod.transform_ivector(params.plda, x, num_examples=1,
+                                          simple_length_norm=False,
+                                          normalize_length=True)
 
 
 class XvPlda(SRSModel):
@@ -125,10 +127,12 @@ class XvPlda(SRSModel):
 
     def _embedding_from_top(self, feats, fast=False, fast_ctx=None):
         p = self.params
-        return process_emb(p, tdnn_embedding(p.tdnn, feats,
-                                              fast=self._fast_on(fast)))
+        with annotate("sg.tdnn"):
+            emb = tdnn_embedding(p.tdnn, feats, fast=self._fast_on(fast))
+        return process_emb(p, emb)
 
     def _scores_from_emb(self, emb, enroll_embs=None):
-        return plda_mod.llr_scores(self.params.plda,
-                                   self._enrolled(enroll_embs), emb,
-                                   num_examples=1)
+        with annotate("sg.plda"):
+            return plda_mod.llr_scores(self.params.plda,
+                                       self._enrolled(enroll_embs), emb,
+                                       num_examples=1)

@@ -1,4 +1,4 @@
-"""Tracing and profiling helpers.
+"""Tracing helpers.
 
 Port of speakerguard_tpu/utils/profiling.py:
 
@@ -6,18 +6,25 @@ Port of speakerguard_tpu/utils/profiling.py:
                         the card when torch sees one) that writes a Chrome
                         trace into ``logdir`` on exit (view it in
                         chrome://tracing, Perfetto or TensorBoard).
-  * ``annotate(name)``  ``torch.profiler.record_function``: a named span on
-                        the trace's timeline.
-  * ``StageTimer``      per-stage wall timers that wait for the device, in
-                        the JAX package's report format.
+  * ``annotate(name)``  a named span on the timeline of the profiler that
+                        the caller runs (``trace`` here, or any other
+                        ``torch.profiler.profile``), on its clock; with no
+                        profiler recording, a shared null context that
+                        costs one check.
+
+The program opens its spans only through ``annotate``.  The attack path's
+spans are named ``sg.<layer>``; ``benchmark/spans.py`` puts each device
+event down to the innermost such span of the host op that launched it, and
+a backward op to the span of the forward op that made its autograd node
+(the node's forward thread and sequence number).
 """
 
 import contextlib
 import os
-import time
-from collections import defaultdict
 
 import torch
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -36,57 +43,8 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    return torch.profiler.record_function(name)
-
-
-def _synchronize(tree):
-    """Waits for every CUDA device that holds a tensor of ``tree`` (a
-    tensor, or a list, tuple or dict nest of them)."""
-    if isinstance(tree, torch.Tensor):
-        if tree.is_cuda:
-            torch.cuda.synchronize(tree.device)
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            _synchronize(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            _synchronize(v)
-
-
-class StageTimer:
-    """Accumulating wall timers; a stage given ``sync`` waits for the
-    device that holds it (JAX's ``block_until_ready``) so stage times are
-    real.  Usage:
-
-        t = StageTimer()
-        with t.stage("forward", sync=out):
-            out = model.score(x)
-        print(t.report())
-
-    ``sync`` is read when the stage ends: pass a tensor that exists before
-    the stage, or a list the stage fills.
-    """
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _synchronize(sync)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            tot = self.totals[name]
-            n = self.counts[name]
-            lines.append(f"{name}: total {tot:.3f}s over {n} calls "
-                         f"({tot / n * 1000:.2f} ms/call)")
-        return "\n".join(lines)
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else the shared null context."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

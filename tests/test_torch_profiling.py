@@ -1,21 +1,23 @@
-"""The port's tracing helpers (speakerguard_tpu_torch/utils/profiling.py)
-against the JAX package's (speakerguard_tpu/utils/profiling.py): ``trace``
-writes a trace file, ``annotate`` names a span in it, and ``StageTimer``
-counts, orders and reports its stages as JAX's does."""
+"""The port's tracing helpers (speakerguard_tpu_torch/utils/profiling.py):
+``trace`` writes a trace file, ``annotate`` names a span in it, and a
+backward node in the file names the forward op that made it."""
 
 import glob
 import json
 import os
-import time
 
 import torch
 
-from speakerguard_tpu.utils.profiling import StageTimer as JaxStageTimer
-
-from speakerguard_tpu_torch.utils.profiling import (StageTimer, annotate,
-                                                    trace)
+from speakerguard_tpu_torch.utils.profiling import annotate, trace
 
 from test_torch_kenan import one_cpu_thread  # noqa: F401
+
+
+def _chrome_events(logdir):
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
 
 
 def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
@@ -23,31 +25,36 @@ def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
     with trace(logdir):
         with annotate("my_stage"):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
-    assert len(files) == 1
-    with open(files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "my_stage" for e in events)
+    assert any(e["name"] == "my_stage" for e in _chrome_events(logdir))
 
 
-def _drive(timer, sync):
-    for name, pause, n in (("short", 0.001, 3), ("long", 0.02, 2)):
-        for _ in range(n):
-            with timer.stage(name, sync=sync):
-                time.sleep(pause)
+def test_trace_file_links_backward_to_forward_by_sequence_number(tmp_path):
+    x = torch.randn(8, 8, requires_grad=True)
+    with trace(str(tmp_path)):
+        with annotate("sg.a"):
+            y = torch.tanh(x @ x)
+        with annotate("sg.b"):
+            loss = (y * 3).sum()
+        loss.backward()
+    events = _chrome_events(str(tmp_path))
+    spans = {e["name"]: e for e in events if e["name"].startswith("sg.")}
+    forward = {}
+    for e in events:
+        seq = e.get("args", {}).get("Sequence number")
+        if seq is not None and not e["args"].get("Fwd thread id"):
+            if seq not in forward or e["ts"] >= forward[seq]["ts"]:
+                forward[seq] = e
 
+    def span_of(e):
+        return [n for n, s in spans.items()
+                if s["ts"] <= e["ts"] <= s["ts"] + s["dur"]]
 
-def test_stage_timer_counts_and_orders_like_jax():
-    port, jax_timer = StageTimer(), JaxStageTimer()
-    _drive(port, torch.zeros(3))
-    _drive(jax_timer, None)
-    assert dict(port.counts) == dict(jax_timer.counts) == {"short": 3,
-                                                           "long": 2}
-    lines = port.report().splitlines()
-    assert [ln.split(":")[0] for ln in lines] == [
-        ln.split(":")[0] for ln in jax_timer.report().splitlines()] == [
-        "long", "short"]
-    total = port.totals["long"]
-    assert total >= 0.04
-    assert lines[0] == (f"long: total {total:.3f}s over 2 calls "
-                        f"({total / 2 * 1000:.2f} ms/call)")
+    layers = {}
+    for e in events:
+        if e["name"].startswith("autograd::engine::evaluate_function: "):
+            args = e["args"]
+            if args.get("Fwd thread id"):
+                op = forward[args["Sequence number"]]
+                layers[e["name"].split(": ")[1]] = span_of(op)
+    assert layers == {"SumBackward0": ["sg.b"], "MulBackward0": ["sg.b"],
+                      "TanhBackward0": ["sg.a"], "MmBackward0": ["sg.a"]}
