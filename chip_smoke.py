@@ -15,9 +15,9 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi); exits non-zero
               when torch sees no CUDA card.
   2. build    nvcc builds the port's kernel sources, csrc/chol.cu,
-              csrc/gmm.cu, csrc/gmm_stats_fwd.cu, csrc/gmm_stats_bwd.cu and
-              csrc/adpcm.cu, one process each, side by side, into
-              csrc/_build/.
+              csrc/gmm.cu, csrc/gmm_stats_fwd.cu, csrc/gmm_stats_bwd.cu,
+              csrc/adpcm.cu and csrc/tdnn_conv.cu, one process each, side by
+              side, into csrc/_build/.
   3. launch   each of fused_loglike's two launches (the three-piece bf16
               split of aug(x), the six-product split GEMM; the projection's
               split between them is plain torch), of stats_fwd's three
@@ -52,9 +52,14 @@ Phases, one JSON line each:
   5. xv_blocks  each TDNN fast block (_BlockFast, _BlockFastBf16 for each
               of the five layers; the two stats pools) forward and backward
               at the xv headline shape (batch 512, T=300 frames) against its
-              plain version, with CUDA-event ms; then xv_small_reference:
-              the card's xv-PLDA scores against the CPU plain path on a
-              model from the same numpy seed.
+              plain version, with CUDA-event ms (the bf16 blocks run
+              tdnn_conv's kernel); then tdnn_conv: the kernel's five layers
+              chained at 512 x 300, each direction's launch timed alone,
+              through its wrapper, beside the present im2col + cuBLAS block
+              (library) and fast_block_plain, against its bound (sums over
+              a PGD-10 call: bound 25.0 ms); then xv_small_reference: the
+              card's xv-PLDA scores against the CPU plain path on a model
+              from the same numpy seed.
   6. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
               R=200, weights from a numpy seed), 10 enrolled speakers, task
               CSI-E, 64 utterances of 3 s; make_decision, then PGD (10
@@ -84,10 +89,10 @@ Phases, one JSON line each:
               seed), 10 speakers enrolled from waves, task CSI-E, 512
               utterances of 3 s: make_decision, then PGD-100 (eps 0.002,
               step 0.0004, Entropy) with FastPath() (bf16 TDNN activations,
-              bf16 DFT).  No hand kernel lies on this path: every launch
-              count is 0.
+              bf16 DFT): tdnn_conv 10 an iteration (each block forward and
+              backward), 1000; every other count 0.
  13. slice_xv_fast_f32  the same with FastPath(tdnn_bf16_act=False),
-              PGD-10.
+              PGD-10: every count 0.
  14. slice_xv_exact  the same with FastPath(enabled=False), PGD-10.
  15. audionet_small_reference  the card's AudioNet scores and embeddings
               (exact path) against the CPU's on weights from one numpy
@@ -138,8 +143,9 @@ Phases, one JSON line each:
               this model (stats_fwd 0, fused_loglike = cholesky_rt).
  23. slice_fakebob_xv  xv-PLDA at full width, FastPath(), 10 speakers, CSI,
               128 utterances of 3 s: FAKEBOB-5 (fast=True) with the 51
-              evaluation points in 3 chunks of 17 (2176 waves each); every
-              hand-kernel count 0.  Each FAKEBOB slice's success must equal
+              evaluation points in 3 chunks of 17 (2176 waves each):
+              tdnn_conv 5 a chunk (the fast forward), 15 an iteration;
+              every other count 0.  Each FAKEBOB slice's success must equal
               an exact re-evaluation of the margin loss of its audio.
  24. defense_small_reference  QT, BDR, MS (equal), AS, DS, LPF and BPF
               (float32 convolutions) on the card against the CPU, each
@@ -159,10 +165,12 @@ Phases, one JSON line each:
               the returned audio with the final evaluation's FeCo draws.
  26. slice_defended_xv  xv-PLDA at batch 512 (the waves of slice_xv),
               QT("512")@0 + FeCo("kmeans 0.2 L2")@1 on FastPath(), PGD-100
-              with EOT 2: every hand-kernel count 0.
+              with EOT 2: tdnn_conv 10 an EOT repeat, 2000; every other
+              count 0.
  27. slice_defended_xv_avg  the same batch, order "average" over
               QT("512"), BPF("50 5000"), DS("0.5") and MS("3") at flag 0,
-              PGD-10 with EOT 1: every count 0.
+              PGD-10 with EOT 1: every count 0 (the average order scores
+              on the exact path).
  28. codec_small_reference  MULAW at 512 x 3 s card vs CPU (rtol 1e-6,
               atol 1e-6 x max; a level may flip only at a near tie); the
               ADPCM kernel torch.equal to its plain loop on the card at
@@ -181,8 +189,9 @@ Phases, one JSON line each:
               frames: slice_siren_iv's shapes, at the main-shape bars,
               timed and bounded.
  30. slice_defended_adpcm_xv  xv-PLDA, FastPath(), ADPCM 4 @0, PGD-10 with
-              EOT 1 at 512 x 3 s: adpcm 12 (once per forward), every other
-              count 0; success equal to an exact re-decision.
+              EOT 1 at 512 x 3 s: adpcm 12 (once per forward), tdnn_conv
+              100, every other count 0; success equal to an exact
+              re-decision.
  31. slice_kenan_ssa_xv  xv-PLDA, Kenan ssa, 15 steps at 4 x 3 s (window
               2400): every count 0; the SVD's ms per wave and driver, the
               full reconstruction within 1e-4 of max |x|, the top 100
@@ -191,7 +200,8 @@ Phases, one JSON line each:
               re-decision.
  32. slice_siren_xv  xv-PLDA, FastPath(), SirenAttack(fast=True), batch
               32, 25 particles, 2 epochs x 30 iterations, abort off (800
-              waves an evaluation): every count 0.
+              waves an evaluation): tdnn_conv 5 a particle evaluation (its
+              fast forward), every other count 0.
  33. slice_kenan_fft_iv  iv-PLDA, FastPath(enabled=False),
               loglike_kernel=True, dither 0, Kenan fft 15 steps at batch 64:
               fused_loglike and cholesky_rt 16 (one per decision).
@@ -245,7 +255,8 @@ Phases, one JSON line each:
               attack_main again (every batch "Exists, Skip"), test_attack on
               the adversarial directory and in imperceptibility mode; the
               seconds of each CLI, ms per PGD iteration, peak memory, the
-              metric means; every launch count 0.  Checks: every written
+              metric means; tdnn_conv 100 on attack_main (PGD-10 on the
+              default fast path), every other count 0.  Checks: every written
               wave within eps of its source after the int16 write-back (one
               LSB of slack), one WAV per test utterance, attack_main's
               success equal to an exact re-decision of its float audio with
@@ -1393,9 +1404,11 @@ def phase_xv_slices(torch, wrappers, profile_dir):
     for name, fast, iters in slices:
         model = XvPlda(params, fast=fast)
         model.set_enrollment([f"spk{i}" for i in range(n_spk)], enroll)
-        out[name] = run_slice(torch, name, model, x, wrappers,
-                              {k: 0 for k in wrappers}, profile_dir, fields,
-                              batch, iters)
+        expected = {k: 0 for k in wrappers}
+        if fast.enabled and fast.tdnn_bf16_act:
+            expected["tdnn_conv"] = TDNN_LAUNCHES * iters
+        out[name] = run_slice(torch, name, model, x, wrappers, expected,
+                              profile_dir, fields, batch, iters)
     return out
 
 
@@ -2008,8 +2021,9 @@ def phase_fakebob_slices(torch, wrappers, profile_dir):
         dict(epsilon=0.002, max_iter=5, samples_per_draw=50,
              samples_per_draw_batch_size=17, max_lr=0.001, stop_early=False,
              fast=True),
-        lambda a: {}, {"model": "xv_plda", "num_ceps": 30, "R": 150,
-                       "nes_chunks": [17, 17, 17]}, profile_dir)
+        lambda a: {"tdnn_conv": TDNN_FORWARD * 3 * a.last_executed_iters},
+        {"model": "xv_plda", "num_ceps": 30, "R": 150,
+         "nes_chunks": [17, 17, 17]}, profile_dir)
     emit(rec)
     out["slice_fakebob_xv"] = launches
     return out
@@ -2042,8 +2056,10 @@ def phase_xv_blocks(torch):
     stats pool against autograd of the exact pooling (its residual is
     bf16, so its cotangent within one bf16 ulp of the largest entry).
     CUDA-event ms of each block's forward and backward, and of the exact
-    layer's forward + backward under autograd."""
+    layer's forward + backward under autograd.  The bf16 blocks run
+    ``tdnn_conv``'s kernel (its saved mask is bits: ``mask_bool``)."""
     from speakerguard_tpu_torch.models import tdnn as T
+    from speakerguard_tpu_torch.ops.tdnn_conv import mask_bool
     tp = T.random_tdnn(np.random.default_rng(0), device="cuda")
     b, t = 512, 300
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2072,7 +2088,7 @@ def phase_xv_blocks(torch):
                             generator=gen).to(dt)
             out, xk, bwd = grad_of(lambda xx: block.apply(xx, *args), x, g)
             dx = bwd()
-            mask = out.grad_fn.saved_tensors[0]
+            mask = mask_bool(out.grad_fn.saved_tensors[0], cout)
             p_out, p_dx = T.fast_block_plain(x, *args, g, bf16, mask)
             if bf16:
                 # one ulp of the output plus one of the conv output (at
@@ -2147,6 +2163,115 @@ def phase_xv_blocks(torch):
     if bad:
         raise RuntimeError(f"xv_blocks: {len(bad)} blocks off their bars: "
                            f"{bad}")
+
+TDNN_SHAPE = (512, 300)   # the xv headline batch and frames (3 s)
+PGD_ITERS = 10            # attack_main's default PGD iterations
+TDNN_FORWARD = 5          # tdnn_conv launches of a fast bf16 TDNN forward
+TDNN_LAUNCHES = 10        # ... of its forward and input gradient
+
+
+def tdnn_conv_bound_ms(b, t_in, cin, k, dil, cout):
+    """The least time of one direction of one TDNN layer, as
+    benchmark/metrics/tdnn_roofline_pct.py counts it: 2 B T_out C_in k C_out
+    operations at 989 TFLOP/s, or its bf16 input, weights and output at
+    3.35 TB/s, whichever is longer."""
+    t_out = t_in - (k - 1) * dil
+    ops = 2.0 * b * t_out * cin * k * cout
+    nbytes = 2.0 * (b * t_in * cin + cout * cin * k + b * t_out * cout)
+    return 1e3 * max(ops / 989e12, nbytes / 3.35e12)
+
+
+def phase_tdnn_conv(torch):
+    """csrc/tdnn_conv.cu (``ops/tdnn_conv.py`` ``tdnn_conv``) at the xv
+    headline shape (512 waves x 300 frames), the five layers chained as
+    the model runs them (each layer's input the previous launch's output,
+    in the features' row stride): for each layer and direction the
+    CUDA-event ms of the launch alone (operands built), of the wrapper
+    call, of the plain float64 block ``fast_block_plain`` and of the
+    present im2col + cuBLAS block (``block_fwd_plain`` / ``block_bwd_plain``
+    on the card, the library yardstick), and the bound; the kernel's
+    output and cotangent against the im2col block's at the bf16 blocks'
+    bars of xv_blocks.  Returns the kernel's record for the kernels line:
+    ms, bound and the others summed over a PGD-10 call (10 iterations of
+    the five layers forward and backward)."""
+    from speakerguard_tpu_torch.models import tdnn as T
+    from speakerguard_tpu_torch.ops import tdnn_conv as TC
+    tp = T.random_tdnn(np.random.default_rng(0), device="cuda")
+    b, t = TDNN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(b, t, 30, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    lib = TC._lib()
+    w = TC.tdnn_conv
+    tot = {"ms": 0.0, "bound_ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
+           "library_ms": 0.0}
+    bad = []
+    for i, (k, dil, cout) in enumerate(T.TDNN_SPEC):
+        cin = x.shape[-1]
+        bn = tp.bn_tdnn[i]
+        args = (tp.conv_w[i], tp.conv_b[i], bn.mean, bn.var, dil)
+        w.reset_counts()
+        out, saved = w.forward(x, *args)
+        # the cotangent in the output's rows layout, as the layer above's
+        # launch (or the stats pool) hands it back
+        g = TC.empty_rows_like(out).copy_(torch.randn(
+            out.shape, device="cuda", generator=gen))
+        gx = w.backward(g, *saved, dil)
+        torch.cuda.synchronize()
+        assert (w.launches, w.plain_calls) == (2, 0)
+        mask = TC.mask_bool(saved[0], cout)
+        l_out, l_mask, w16 = TC.block_fwd_plain(x, *args)
+        l_gx = TC.block_bwd_plain(g, mask, w16, bn.var, dil)
+        s_bn = torch.rsqrt(bn.var + T.BN_EPS)
+        mag = torch.maximum(out.float().abs(), l_out.float().abs())
+        conv_mag = (mag + bf16_ulp(torch, mag)) / s_bn + (
+            args[1] - bn.mean).abs()
+        tol = (bf16_ulp(torch, mag) + s_bn * bf16_ulp(torch, conv_mag)
+               + 1e-5 * l_out.float().abs().max())
+        out_ok = bool(((out.float() - l_out.float()).abs() <= tol).all())
+        dx_ok = within_top_ulp(torch, gx, l_gx)
+        fop = TC.fwd_operands(x, *args)
+        bop = TC.bwd_operands(g, saved[0], *saved[1:], dil)
+
+        def launch(entry, op):
+            return lambda: TC._call(getattr(lib, entry), op, x.device)
+
+        rec = {"phase": "tdnn_conv", "layer": i + 1, "shape": [b, t, cin],
+               "row_stride": TC.rows_layout(x)[0],
+               "mask_agree": float((mask == l_mask).float().mean()),
+               "ok": out_ok and dx_ok}
+        for d, entry, op, wrapped, plain, library in (
+                ("fwd", "sg_tdnn_conv_fwd", fop,
+                 lambda: w.forward(x, *args),
+                 lambda: T.fast_block_plain(x, *args, g, True, mask),
+                 lambda: TC.block_fwd_plain(x, *args)),
+                ("bwd", "sg_tdnn_conv_bwd", bop,
+                 lambda: w.backward(g, *saved, dil),
+                 None,
+                 lambda: TC.block_bwd_plain(g, mask, w16, bn.var, dil))):
+            rec[f"{d}_ms"] = cuda_ms(launch(entry, op), 2, 20)
+            rec[f"{d}_bound_ms"] = tdnn_conv_bound_ms(b, x.shape[1], cin, k,
+                                                      dil, cout)
+            rec[f"{d}_wrapper_ms"] = cuda_ms(wrapped, 2, 20)
+            rec[f"{d}_library_ms"] = cuda_ms(library, 1, 5)
+            if plain is not None:  # forward and backward in one call
+                rec["fwd_bwd_plain_ms"] = cuda_ms(plain, 1, 3)
+            for key in ("ms", "bound_ms", "wrapper_ms", "library_ms"):
+                tot[key] += PGD_ITERS * rec[f"{d}_{key}"]
+        tot["plain_ms"] += PGD_ITERS * rec["fwd_bwd_plain_ms"]
+        emit(rec)
+        if not rec["ok"]:
+            bad.append(rec)
+        x = out
+        del fop, bop, saved, g, gx, l_out, l_gx, mask
+    rec = {"phase": "tdnn_conv", "per": "PGD-10 call (10 x 5 layers x 2 "
+           "directions)", **tot, "roofline_pct": 100 * tot["bound_ms"]
+           / tot["ms"]}
+    emit(rec)
+    if bad:
+        raise RuntimeError(f"tdnn_conv: {len(bad)} layers off their bars: "
+                           f"{bad}")
+    return rec
 
 
 def phase_xv_small_reference(torch):
@@ -2432,7 +2557,8 @@ def phase_defended_slices(torch, wrappers, profile_dir):
     model, canonical = defended(base, ["QT", "FeCo"],
                                 ["512", "kmeans 0.2 L2"], [0, 1])
     out["slice_defended_xv"] = run_defended_slice(
-        torch, "slice_defended_xv", model, x, wrappers, zero,
+        torch, "slice_defended_xv", model, x, wrappers,
+        {**zero, "tdnn_conv": TDNN_LAUNCHES * 100 * 2},
         {**fields, "defense": canonical, "frames_after_feco": 60},
         profile_dir, 100, 2)
     torch.cuda.empty_cache()
@@ -3097,6 +3223,7 @@ def phase_slice15(torch, wrappers):
     iters = 10
     expected = {k: 0 for k in wrappers}
     expected["adpcm"] = iters + 2
+    expected["tdnn_conv"] = TDNN_LAUNCHES * iters
     out["slice_defended_adpcm_xv"] = run_defended_slice(
         torch, "slice_defended_adpcm_xv", model, x, wrappers, expected,
         {**xfields, "defense": canonical}, None, iters, 1)
@@ -3123,7 +3250,8 @@ def phase_slice15(torch, wrappers):
     siren = dict(epsilon=0.002, max_epoch=2, max_iter=30, n_particles=25,
                  abort_early=False, fast=True)
     out["slice_siren_xv"], rec = run_siren_slice(
-        torch, "slice_siren_xv", base, x[:32], wrappers, lambda a: {},
+        torch, "slice_siren_xv", base, x[:32], wrappers,
+        lambda a: {"tdnn_conv": TDNN_FORWARD * a.last_particle_evals},
         xfields, siren)
     emit(rec)
     del base, xparams, enroll, x
@@ -4067,7 +4195,8 @@ def phase_cli(torch, wrappers):
         out["cli_xv"] = run_cli_phase(
             torch, "cli_xv", wrappers, "xv_plda",
             ["-extractor", ckpt, "-plda", xv_files[0], "-mean", xv_files[1],
-             "-transform", xv_files[2]], ["PGD"], {}, root)
+             "-transform", xv_files[2]], ["PGD"],
+            {"attack_main": {"tdnn_conv": TDNN_LAUNCHES * 10}}, root)
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
@@ -4453,7 +4582,8 @@ def main(argv):
     try:
         import speakerguard_tpu_torch  # noqa: F401  (TF32 off)
         from speakerguard_tpu_torch.ops import _build, chol
-        from speakerguard_tpu_torch.ops import adpcm, gmm_loglike, gmm_stats
+        from speakerguard_tpu_torch.ops import (adpcm, gmm_loglike, gmm_stats,
+                                                tdnn_conv)
     except ImportError as exc:
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({exc})", file=sys.stderr)
@@ -4476,7 +4606,8 @@ def main(argv):
         check=True).stdout.strip().splitlines()[0])
 
     t0 = time.perf_counter()
-    sources = ("chol", "gmm", "gmm_stats_fwd", "gmm_stats_bwd", "adpcm")
+    sources = ("chol", "gmm", "gmm_stats_fwd", "gmm_stats_bwd", "adpcm",
+               "tdnn_conv")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -4495,6 +4626,7 @@ def main(argv):
     recs.update(gmm_main)
     phase_small_reference(torch)
     phase_xv_blocks(torch)
+    tdnn_rec = phase_tdnn_conv(torch)
     phase_xv_small_reference(torch)
     wrappers = {"cholesky_rt": chol.cholesky_rt,
                 "cholesky_rt_dinv": chol.cholesky_rt_dinv,
@@ -4502,7 +4634,8 @@ def main(argv):
                 "fused_loglike": gmm_loglike.fused_loglike,
                 "stats_fwd": gmm_stats.stats_fwd,
                 "stats_bwd": gmm_stats.stats_bwd,
-                "adpcm": adpcm.adpcm}
+                "adpcm": adpcm.adpcm,
+                "tdnn_conv": tdnn_conv.tdnn_conv}
     launches, models, x = phase_slices(torch, wrappers, profile_dir)
     if "--rounds" in argv:
         phase_rounds(torch, {n: models[n] for n in (
@@ -4629,6 +4762,22 @@ def main(argv):
         "cycles_per_sample": adpcm_rec["cycles_per_sample"],
         "ms_512x4800": adpcm_rec["ms_512x4800"],
         "defense_ms": adpcm_rec["defense_ms"]})
+    # the TDNN's bf16 block: replaces no Pallas kernel (XLA's convolutions)
+    kernels.append({
+        "name": "tdnn_conv", "route": "cuda",
+        "source": "speakerguard_tpu_torch/csrc/tdnn_conv.cu",
+        "replaces": "speakerguard_tpu/models/tdnn.py _block_fast_bf16 "
+                    "(XLA's convolutions; no Pallas kernel)",
+        "pallas_counterpart": None,
+        "launches": launches["slice_xv"]["tdnn_conv"],
+        "launches_by_path": {p: v.get("tdnn_conv", 0)
+                             for p, v in launches.items()},
+        "per": tdnn_rec["per"], "ms": tdnn_rec["ms"],
+        "plain_ms": tdnn_rec["plain_ms"], "bound_ms": tdnn_rec["bound_ms"],
+        "bound_by": "operations (bytes on layer 1)",
+        "library_ms": tdnn_rec["library_ms"],
+        "wrapper_ms": tdnn_rec["wrapper_ms"],
+        "roofline_pct": tdnn_rec["roofline_pct"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,9 +5,10 @@ model/_xv_plda/xvecTDNN.py).  The weights are held in PyTorch's layout:
 Conv1d weights (out, in, k) and Linear weights (out, in), as the reference
 checkpoint stores them, so ``load_tdnn_from_torch_state`` takes a state dict
 as it is.  The activations keep the JAX package's (B, T, C) layout, and each
-dilated convolution runs as one GEMM over its k taps (``_im2col`` gathers
-the k shifted copies of the input side by side).  Like XLA's convolutions,
-the GEMM accumulates in float32 and rounds once to its output type, and it
+dilated convolution of the exact path and of ``_BlockFast`` runs as one GEMM
+over its k taps (``ops/tdnn_conv.py`` ``_conv1d``: ``_im2col`` gathers the
+k shifted copies of the input side by side).  Like XLA's convolutions, the
+GEMM accumulates in float32 and rounds once to its output type, and it
 gives the float32-output bf16 products of ``_BlockFast``'s backward
 (``torch.mm``'s out_dtype form), which no convolution call offers; on the
 H100 cuDNN's bf16 backward of the dilated 7-tap layer also ran about ten
@@ -17,12 +18,15 @@ pooling is mean ++ unbiased std over time.
 
 The fast attack-gradient path (``FastPath.tdnn_fast``, JAX SG_TDNN_FAST)
 runs each conv -> ReLU -> BN layer as one ``torch.autograd.Function`` that
-saves the bool ReLU mask in place of the activations, and the stats pooling
+saves the ReLU mask in place of the activations, and the stats pooling
 as one that saves its input in bf16.  With ``FastPath.tdnn_bf16_act`` (JAX
 SG_TDNN_BF16_ACT) the activations and their cotangents are bf16 between the
-layers.  The forward values of the f32 blocks are the exact path's.  The
-weights are buffers: the Functions give them no cotangent, since attacks
-differentiate with respect to the waveform only.
+layers, and each block is ``ops/tdnn_conv.py``'s ``tdnn_conv``: on the card
+one hand-written implicit-GEMM launch a direction with the bias, ReLU, BN
+and roundings fused, on the CPU its plain version.  The forward values of
+the f32 blocks are the exact path's.  The weights are buffers: the
+Functions give them no cotangent, since attacks differentiate with respect
+to the waveform only.
 """
 
 from typing import NamedTuple
@@ -33,10 +37,11 @@ import torch.nn.functional as F
 
 from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.models.gmm import fast_dot_dtype
+from speakerguard_tpu_torch.ops.tdnn_conv import (
+    BN_EPS, _conv1d, _conv1d_input_grad, empty_rows_like, tdnn_conv)
 
 # (kernel, dilation, out_channels) for tdnn1..tdnn5; input channels = 30
 TDNN_SPEC = ((5, 1, 512), (5, 2, 512), (7, 3, 512), (1, 1, 512), (1, 1, 1500))
-BN_EPS = 1e-5
 
 
 class BNStats(NamedTuple):
@@ -101,49 +106,6 @@ def _bn(x, stats: BNStats, eps=BN_EPS):
     return (x - stats.mean) * torch.rsqrt(stats.var + eps)
 
 
-def _im2col(x, k, dilation, t_out):
-    """(B, T, C) -> (B t_out, k C): row (b, t) holds x[b, t + j dilation]
-    for the k taps j, tap-major."""
-    if k == 1:
-        return x[:, :t_out].reshape(-1, x.shape[-1])
-    return torch.cat([x[:, j * dilation:j * dilation + t_out]
-                      for j in range(k)], dim=-1).view(-1, k * x.shape[-1])
-
-
-def _mm(a, b, out_dtype):
-    """a @ b; with ``out_dtype`` wider than the operands, the float32
-    output of bf16 operands (``torch.mm``'s out_dtype form, CUDA only)."""
-    if out_dtype == a.dtype:
-        return a @ b
-    return torch.mm(a, b, out_dtype=out_dtype)
-
-
-def _conv1d(x, w, bias, dilation):
-    """Valid dilated convolution in (B, T, C): x (B, T, in) and w (out, in,
-    k), both of one dtype -> (B, T - (k-1) dilation, out), as one GEMM over
-    the k taps with float32 accumulation, rounded once to that dtype."""
-    k = w.shape[2]
-    t_out = x.shape[1] - (k - 1) * dilation
-    wm = w.permute(2, 1, 0).reshape(-1, w.shape[0])        # (k in, out)
-    y = _im2col(x, k, dilation, t_out) @ wm
-    y = y.view(x.shape[0], t_out, -1)
-    return y if bias is None else y + bias
-
-
-def _conv1d_input_grad(gy, w, dilation, out_dtype=None):
-    """The input cotangent of ``_conv1d``: gy (B, T', out) and w of gy's
-    dtype -> (B, T' + (k-1) dilation, in), the convolution of gy padded by
-    (k-1) dilation on both sides with the taps reversed, as one GEMM
-    rounded once to ``out_dtype`` (default gy's)."""
-    k = w.shape[2]
-    pad = (k - 1) * dilation
-    t_in = gy.shape[1] + pad
-    gyp = F.pad(gy, (0, 0, pad, pad)) if pad else gy
-    wm = w.flip(2).permute(2, 0, 1).reshape(-1, w.shape[1])
-    gx = _mm(_im2col(gyp, k, dilation, t_in), wm, out_dtype or gy.dtype)
-    return gx.view(gy.shape[0], t_in, -1)
-
-
 class _BlockFast(torch.autograd.Function):
     """conv -> ReLU -> BN for attack-gradient graphs (JAX ``_block_fast``):
     the exact float32 forward, with only the bool ReLU mask, the weights and
@@ -174,23 +136,21 @@ class _BlockFastBf16(torch.autograd.Function):
     bf16 on every backend): x arrives bf16, the conv takes bf16 weights and
     rounds its float32 sum once to bf16, the bias, ReLU and BN run in
     float32 on that and the result is rounded to bf16.  The backward is a
-    bf16 transposed convolution, its float32 sum rounded once to bf16."""
+    bf16 transposed convolution, its float32 sum rounded once to bf16.
+    ``tdnn_conv`` runs both: the kernel on a CUDA tensor (its output a view
+    in the input's row stride, its mask bits), the plain version on a CPU
+    one; the first saved tensor is the mask (``tdnn_conv.mask_bool``)."""
 
     @staticmethod
     def forward(ctx, x, w, b, mean, var, dilation):
-        w16 = w.to(torch.bfloat16)
-        y = torch.add(_conv1d(x, w16, None, dilation), b)   # float32
-        mask = y > 0
-        out = _bn(torch.where(mask, y, 0.0), BNStats(mean, var))
-        ctx.save_for_backward(mask, w16, var)
+        out, saved = tdnn_conv.forward(x, w, b, mean, var, dilation)
+        ctx.save_for_backward(*saved)
         ctx.dilation = dilation
-        return out.to(torch.bfloat16)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        mask, w16, var = ctx.saved_tensors
-        gy = torch.where(mask, g * torch.rsqrt(var + BN_EPS), 0.0)  # float32
-        gx = _conv1d_input_grad(gy.to(torch.bfloat16), w16, ctx.dilation)
+        gx = tdnn_conv.backward(g, *ctx.saved_tensors, ctx.dilation)
         return gx, None, None, None, None, None
 
 
@@ -261,7 +221,8 @@ class _StatsPoolFast(torch.autograd.Function):
 class _StatsPoolFastBf16(torch.autograd.Function):
     """Stats pooling of bf16 activations (JAX ``_stats_pool_fast_bf16``):
     float32 sums, a float32 (B, 3000) output, the bf16 input is its own
-    residual and the cotangent goes back as bf16."""
+    residual and the cotangent goes back as bf16, in the input's rows layout
+    (``empty_rows_like``), where the last block's kernel reads it."""
 
     @staticmethod
     def forward(ctx, x):
@@ -271,7 +232,8 @@ class _StatsPoolFastBf16(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _mean_std_vjp(g, *ctx.saved_tensors).to(torch.bfloat16)
+        x = ctx.saved_tensors[0]
+        return empty_rows_like(x).copy_(_mean_std_vjp(g, *ctx.saved_tensors))
 
 
 def _normal(rng, shape, device) -> torch.Tensor:

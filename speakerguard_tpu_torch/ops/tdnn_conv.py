@@ -1,0 +1,365 @@
+"""The TDNN's dilated convolutions, and the bf16 fast block's kernel.
+
+The convolutions in (B, T, C): each dilated convolution as one GEMM over its
+k taps (``_im2col`` gathers the k shifted copies of the input side by side,
+tap-major).  Like XLA's convolutions, the GEMM accumulates in float32 and
+rounds once to its output type; ``_mm`` gives the float32-output bf16
+products of ``_BlockFast``'s backward (``torch.mm``'s out_dtype form), which
+no convolution call offers.
+
+``tdnn_conv`` runs the conv -> ReLU -> BN block of ``_BlockFastBf16``
+(models/tdnn.py) forward and backward.  Its rounding points, which kernel
+and plain version share:
+
+  1. forward: y = f32(bf16(x16 . w16)) + bias (the conv's float32 sum rounded
+     once to bf16); m = y > 0; out = bf16(((m ? y : 0) - mean) s), s =
+     rsqrt(var + eps);
+  2. backward: gy = bf16(m ? f32(g) s : 0); gx = bf16(gy . w16 transposed),
+     float32 sums rounded once.
+
+On a CPU tensor it runs the plain version (``block_fwd_plain``,
+``block_bwd_plain``: the im2col GEMMs and torch's elementwise passes).  On a
+CUDA tensor it launches ``csrc/tdnn_conv.cu``, an implicit GEMM whose taps
+are read in place by TMA, with the epilogue and the backward's operand
+formed inside the kernel (the source's header says how).  Its operands:
+
+- activations are the first T rows of each utterance of a (B, Ts, ld)
+  row-major buffer (``rows_layout``): every layer keeps its input's row
+  stride Ts, so the output (B, T_out, C_out) is a view of (B - 1) Ts + T_out
+  rows, and the rows between T_out and Ts of an utterance are junk that
+  nothing reads as values.  ld is a multiple of 8 (16 bytes, for TMA):
+  layer 1's 30 channels are copied into rows of 32;
+- the weights are packed once (``weight_packs``, kept on the weight tensor
+  until it changes): (C_out, k, C_in padded to 64) for the forward and
+  (C_in, k, C_out padded to 64) with the taps reversed for the backward;
+- the ReLU mask is saved as bits: (B, T_out, M) uint8, one byte a row and 8
+  channels, M a multiple of 8 (``mask_bool`` reads either form back).
+"""
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from speakerguard_tpu_torch.ops._build import KernelWrapper, check_rc
+
+BN_EPS = 1e-5
+TILE_N = 256   # output columns of the kernel's tile: the vectors' padding
+TILE_K = 64    # channels of a k-tile: the packed weights' padding
+
+
+def _im2col(x, k, dilation, t_out):
+    """(B, T, C) -> (B t_out, k C): row (b, t) holds x[b, t + j dilation]
+    for the k taps j, tap-major."""
+    if k == 1:
+        return x[:, :t_out].reshape(-1, x.shape[-1])
+    return torch.cat([x[:, j * dilation:j * dilation + t_out]
+                      for j in range(k)], dim=-1).view(-1, k * x.shape[-1])
+
+
+def _mm(a, b, out_dtype):
+    """a @ b; with ``out_dtype`` wider than the operands, the float32
+    output of bf16 operands (``torch.mm``'s out_dtype form, CUDA only)."""
+    if out_dtype == a.dtype:
+        return a @ b
+    return torch.mm(a, b, out_dtype=out_dtype)
+
+
+def _conv1d(x, w, bias, dilation):
+    """Valid dilated convolution in (B, T, C): x (B, T, in) and w (out, in,
+    k), both of one dtype -> (B, T - (k-1) dilation, out), as one GEMM over
+    the k taps with float32 accumulation, rounded once to that dtype."""
+    k = w.shape[2]
+    t_out = x.shape[1] - (k - 1) * dilation
+    wm = w.permute(2, 1, 0).reshape(-1, w.shape[0])        # (k in, out)
+    y = _im2col(x, k, dilation, t_out) @ wm
+    y = y.view(x.shape[0], t_out, -1)
+    return y if bias is None else y + bias
+
+
+def _conv1d_input_grad(gy, w, dilation, out_dtype=None):
+    """The input cotangent of ``_conv1d``: gy (B, T', out) and w of gy's
+    dtype -> (B, T' + (k-1) dilation, in), the convolution of gy padded by
+    (k-1) dilation on both sides with the taps reversed, as one GEMM
+    rounded once to ``out_dtype`` (default gy's)."""
+    k = w.shape[2]
+    pad = (k - 1) * dilation
+    t_in = gy.shape[1] + pad
+    gyp = F.pad(gy, (0, 0, pad, pad)) if pad else gy
+    wm = w.flip(2).permute(2, 0, 1).reshape(-1, w.shape[1])
+    gx = _mm(_im2col(gyp, k, dilation, t_in), wm, out_dtype or gy.dtype)
+    return gx.view(gy.shape[0], t_in, -1)
+
+
+def block_fwd_plain(x, w, b, mean, var, dilation):
+    """The plain forward on (B, T, C): bf16 x and the bf16-rounded weights
+    through the im2col GEMM, then the bias, ReLU and BN in float32 ->
+    (out bf16, the bool ReLU mask, w16)."""
+    w16 = w.to(torch.bfloat16)
+    y = torch.add(_conv1d(x, w16, None, dilation), b)   # float32
+    mask = y > 0
+    out = (torch.where(mask, y, 0.0) - mean) * torch.rsqrt(var + BN_EPS)
+    return out.to(torch.bfloat16), mask, w16
+
+
+def block_bwd_plain(g, mask, w16, var, dilation):
+    """The plain input gradient: gy = bf16(where(mask, g s, 0)) through the
+    transposed im2col GEMM, rounded once to bf16."""
+    gy = torch.where(mask, g * torch.rsqrt(var + BN_EPS), 0.0)  # float32
+    return _conv1d_input_grad(gy.to(torch.bfloat16), w16, dilation)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def rows_layout(t: torch.Tensor):
+    """(Ts, ld) of a (B, T, C) tensor held as the first T rows of each
+    utterance of a (B, Ts, ld) row-major buffer; raises on any other
+    layout."""
+    if t.dim() != 3:
+        raise ValueError(f"expected (B, T, C), got shape {tuple(t.shape)}")
+    b, t_len, c = t.shape
+    s0, s1, s2 = t.stride()
+    whole = s1 > 0 and s0 % s1 == 0 and s0 // s1 >= t_len
+    if (c > 1 and s2 != 1) or s1 < c or (b > 1 and not whole):
+        raise ValueError(f"a (B, T, C) operand's rows must be channel-"
+                         f"contiguous and utterances whole rows apart: "
+                         f"shape {tuple(t.shape)}, strides {t.stride()}")
+    return (s0 // s1 if whole else t_len), s1
+
+
+def rows_tensor(shape, ts: int, ld: int, dtype, device) -> torch.Tensor:
+    """An uninitialised (B, T, C) view onto the (B - 1) Ts + T rows of ld
+    that its layout needs (``rows_layout`` gives back (Ts, ld))."""
+    b, t, c = shape
+    base = torch.empty(((b - 1) * ts + t) * ld, dtype=dtype, device=device)
+    return base.as_strided((b, t, c), (ts * ld, ld, 1))
+
+
+def empty_rows_like(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor of ``t``'s shape and dtype in its rows
+    layout: a cotangent that the layer below's kernel reads in place."""
+    ts, ld = rows_layout(t)
+    return rows_tensor(t.shape, ts, ld, t.dtype, t.device)
+
+
+def _kernel_rows(t: torch.Tensor, ts: int) -> torch.Tensor:
+    """``t`` if TMA can read its rows (row stride a multiple of 16 bytes,
+    16-byte aligned, utterances ``ts`` rows apart), else a copy into rows
+    of round_up(C, 8)."""
+    t_ts, ld = rows_layout(t)
+    if ((t_ts == ts or t.shape[0] == 1) and ld % 8 == 0
+            and t.data_ptr() % 16 == 0):
+        return t
+    out = rows_tensor(t.shape, ts, _round_up(t.shape[-1], 8), t.dtype,
+                      t.device)
+    return out.copy_(t)
+
+
+def _cached(owner: torch.Tensor, attr: str, keys: tuple, build):
+    """``build()``, kept on ``owner`` until one of ``keys`` (tensors) is
+    replaced or changed in place."""
+    versions = tuple(k._version for k in keys)
+    hit = getattr(owner, attr, None)
+    if (hit is not None and len(hit[0]) == len(keys)
+            and all(a is b for a, b in zip(hit[0], keys))
+            and hit[1] == versions):
+        return hit[2]
+    value = build()
+    setattr(owner, attr, (keys, versions, value))
+    return value
+
+
+def weight_packs(w: torch.Tensor):
+    """(wf, wb): the kernel's bf16 weights for w (out, in, k), packed once.
+    wf (out, k round_up(in, 64)), wf[o, j, c] = w[o, c, j]; wb (in, k
+    round_up(out, 64)), wb[c, j, o] = w[o, c, k - 1 - j]; zeros past the
+    channels."""
+    def build():
+        cout, cin, k = w.shape
+        w16 = w.detach().to(torch.bfloat16)
+        wf = torch.zeros(cout, k, _round_up(cin, TILE_K),
+                         dtype=torch.bfloat16, device=w.device)
+        wf[:, :, :cin] = w16.permute(0, 2, 1)
+        wb = torch.zeros(cin, k, _round_up(cout, TILE_K),
+                         dtype=torch.bfloat16, device=w.device)
+        wb[:, :, :cout] = w16.flip(2).permute(1, 2, 0)
+        return wf.view(cout, -1), wb.view(cin, -1)
+    return _cached(w, "_tdnn_conv_packs", (w,), build)
+
+
+def epilogue_vectors(b, mean, var) -> torch.Tensor:
+    """(3, round_up(C, 256)) float32: bias, BN mean and s = rsqrt(var +
+    eps) (as ``_bn`` computes it), zero past C; kept on ``var``."""
+    def build():
+        c = var.shape[0]
+        vecs = torch.zeros(3, _round_up(c, TILE_N), dtype=torch.float32,
+                           device=var.device)
+        vecs[0, :c] = b
+        vecs[1, :c] = mean
+        vecs[2, :c] = torch.rsqrt(var + BN_EPS)
+        return vecs
+    return _cached(var, "_tdnn_conv_vecs", (b, mean, var), build)
+
+
+def mask_bool(mask: torch.Tensor, c: int) -> torch.Tensor:
+    """The block's saved ReLU mask as a (B, T_out, c) bool tensor: the
+    plain version's as it is, the kernel's bits unpacked."""
+    if mask.dtype == torch.bool:
+        return mask
+    nbytes = -(-c // 8)
+    shifts = torch.arange(8, device=mask.device, dtype=torch.uint8)
+    bits = (mask[..., :nbytes, None] >> shifts) & 1
+    return bits.reshape(*mask.shape[:-1], nbytes * 8)[..., :c].bool()
+
+
+def _check_fwd(x, w, b, mean, var, dilation):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"tdnn_conv takes a bf16 activation, not {x.dtype}")
+    if x.dim() != 3 or w.dim() != 3 or x.shape[-1] != w.shape[1]:
+        raise ValueError(f"x (B, T, {w.shape[1] if w.dim() == 3 else '?'})"
+                         f" and w (out, in, k) expected: x "
+                         f"{tuple(x.shape)}, w {tuple(w.shape)}")
+    cout, _, k = w.shape
+    if x.shape[1] <= (k - 1) * dilation:
+        raise ValueError(f"T = {x.shape[1]} frames is shorter than the "
+                         f"{k}-tap filter at dilation {dilation}")
+    for name, v in (("b", b), ("mean", mean), ("var", var)):
+        if tuple(v.shape) != (cout,):
+            raise ValueError(f"{name} of shape {tuple(v.shape)}, expected "
+                             f"({cout},)")
+    for t in (w, b, mean, var):
+        if t.device != x.device:
+            raise ValueError(f"tdnn_conv's operands lie on {x.device} and "
+                             f"{t.device}")
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# The argument types of csrc/tdnn_conv.cu's C entry points, in order (a CPU
+# test holds them to the source's extern "C" declarations); each returns an
+# int.
+ARGTYPES = {
+    # x, x_rows, cin, x_ld, wf, k, vecs, vec_len, out, out_ld, mask,
+    # mask_ld, rows, ts, t_out, cout, dil, stream
+    "sg_tdnn_conv_fwd": [_PTR, _INT, _INT, _INT, _PTR, _INT, _PTR, _INT,
+                         _PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _INT,
+                         _INT, _PTR],
+    # g, g_rows, g_ld, mask, mask_ld, s, vec_len, wb, k, gx, gx_ld, rows,
+    # ts, t_in, cin, cout, dil, stream
+    "sg_tdnn_conv_bwd": [_PTR, _INT, _INT, _PTR, _INT, _PTR, _INT, _PTR,
+                         _INT, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
+                         _INT, _PTR],
+    "sg_tdnn_conv_tile_n": [],
+    "sg_tdnn_conv_tile_k": [],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The C entry points of csrc/tdnn_conv.cu, built at first use."""
+    from speakerguard_tpu_torch.ops._build import load_library
+    lib = load_library("tdnn_conv")
+    for name, args in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    if (lib.sg_tdnn_conv_tile_n(), lib.sg_tdnn_conv_tile_k()) != (
+            TILE_N, TILE_K):
+        raise RuntimeError(f"csrc/tdnn_conv.cu tiles "
+                           f"{lib.sg_tdnn_conv_tile_n()} x "
+                           f"{lib.sg_tdnn_conv_tile_k()}, ops/tdnn_conv.py "
+                           f"{TILE_N} x {TILE_K}")
+    return lib
+
+
+def _ext_rows(t: torch.Tensor, ts: int) -> int:
+    """The flat rows a (B, T, C) operand of row stride ``ts`` spans."""
+    return (t.shape[0] - 1) * ts + t.shape[1]
+
+
+def fwd_operands(x, w, b, mean, var, dilation):
+    """The forward launch's operands, outputs allocated: a dict of the C
+    entry point's arguments by name (tensors where it takes pointers), and
+    the outputs out (B, T_out, C_out) bf16 and mask (B, T_out, M) uint8 as
+    views in x's row stride."""
+    bsz, _, cin = x.shape
+    cout, _, k = w.shape
+    ts, _ = rows_layout(x)
+    x = _kernel_rows(x, ts)
+    t_out = x.shape[1] - (k - 1) * dilation
+    mask_ld = _round_up(-(-cout // 8), 8)
+    out = rows_tensor((bsz, t_out, cout), ts, _round_up(cout, 8),
+                      torch.bfloat16, x.device)
+    mask = rows_tensor((bsz, t_out, mask_ld), ts, mask_ld, torch.uint8,
+                       x.device)
+    wf, _ = weight_packs(w)
+    vecs = epilogue_vectors(b, mean, var)
+    return dict(x=x, x_rows=_ext_rows(x, ts), cin=cin, x_ld=x.stride(1),
+                wf=wf, k=k, vecs=vecs, vec_len=vecs.shape[1], out=out,
+                out_ld=out.stride(1), mask=mask, mask_ld=mask_ld,
+                rows=_ext_rows(out, ts), ts=ts, t_out=t_out, cout=cout,
+                dil=dilation)
+
+
+def bwd_operands(g, mask, w, vecs, dilation):
+    """The input-gradient launch's operands for the output cotangent g
+    (B, T_out, C_out), the forward's mask bits and vectors: a dict as
+    ``fwd_operands``', g copied into the mask's row stride where it lies
+    elsewhere, and gx (B, T_in, C_in) bf16 allocated in that row stride."""
+    bsz, t_out, cout = g.shape
+    ts, mask_ld = rows_layout(mask)
+    g = _kernel_rows(g.to(torch.bfloat16), ts)
+    _, wb = weight_packs(w)
+    cin, k = w.shape[1], w.shape[2]
+    t_in = t_out + (k - 1) * dilation
+    gx = rows_tensor((bsz, t_in, cin), ts, _round_up(cin, 8),
+                     torch.bfloat16, g.device)
+    return dict(g=g, g_rows=_ext_rows(g, ts), g_ld=g.stride(1), mask=mask,
+                mask_ld=mask_ld, s=vecs[2], vec_len=vecs.shape[1], wb=wb,
+                k=k, gx=gx, gx_ld=gx.stride(1), rows=_ext_rows(gx, ts),
+                ts=ts, t_in=t_in, cin=cin, cout=cout, dil=dilation)
+
+
+def _call(fn, op: dict, device) -> int:
+    """Call a C entry point with ``op``'s arguments in order (tensors by
+    pointer) on ``device``'s current stream."""
+    args = [v.data_ptr() if isinstance(v, torch.Tensor) else int(v)
+            for v in op.values()]
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+class _TdnnConv(KernelWrapper):
+    """``tdnn_conv.forward(x, w, b, mean, var, dilation) -> (out, saved)``
+    and ``tdnn_conv.backward(g, *saved, dilation) -> gx``: the bf16 block's
+    two directions, ``saved`` what the backward of the same route reads
+    (the plain version's: the bool mask, w16, var; the kernel's: the mask
+    bits, w, the epilogue vectors).  ``launches`` counts both directions'
+    launches."""
+
+    name = "tdnn_conv"
+
+    def forward(self, x, w, b, mean, var, dilation):
+        _check_fwd(x, w, b, mean, var, dilation)
+        if not self.route(x):
+            out, mask, w16 = block_fwd_plain(x, w, b, mean, var, dilation)
+            return out, (mask, w16, var)
+        op = fwd_operands(x, w, b, mean, var, dilation)
+        self._launch("sg_tdnn_conv_fwd", op, x.device)
+        return op["out"], (op["mask"], w, op["vecs"])
+
+    def backward(self, g, mask, w, v, dilation):
+        if not self.route(g):
+            return block_bwd_plain(g, mask, w, v, dilation)
+        op = bwd_operands(g, mask, w, v, dilation)
+        self._launch("sg_tdnn_conv_bwd", op, g.device)
+        return op["gx"]
+
+    def _launch(self, entry: str, op: dict, device):
+        check_rc(_call(getattr(_lib(), entry), op, device), self.name)
+        self.launches += 1
+
+
+tdnn_conv = _TdnnConv()

@@ -44,6 +44,10 @@ from speakerguard_tpu_torch.models import tdnn as TT
 from speakerguard_tpu_torch.models.base import FastPath
 from speakerguard_tpu_torch.models.xv_plda import (
     random_xv_plda_params as port_random_xv_plda_params)
+from speakerguard_tpu_torch.ops.tdnn_conv import mask_bool
+
+from tdnn_bars import (_f32_close, assert_bf16_block_close,
+                       assert_within_top_bf16_ulp)
 
 LAYERS = range(len(TT.TDNN_SPEC))
 
@@ -58,38 +62,6 @@ def tdnn():
 def _feats(seed, b=3, t=80):
     return np.random.default_rng(seed).standard_normal((b, t, 30)).astype(
         np.float32)
-
-
-def _f32_close(got, want):
-    np.testing.assert_allclose(got, want, rtol=1e-5,
-                               atol=1e-5 * np.abs(want).max())
-
-
-def bf16_ulp(a):
-    """The spacing of bf16 numbers at |a| (8 significant bits)."""
-    a = np.maximum(np.abs(np.asarray(a, np.float32)), np.float32(2 ** -126))
-    return 2.0 ** (np.floor(np.log2(a)) - 7)
-
-
-def assert_bf16_block_close(got, want, b, mean, var):
-    """The bf16 output bar of this file's header, for a block whose bias,
-    BN mean and BN variance are ``b``, ``mean``, ``var`` (channels last):
-    the conv output is at most (|out| + one ulp) / s + |b - mean| in
-    magnitude, the ulp for the output's own rounding."""
-    b, mean, var = (np.asarray(a, np.float32) for a in (b, mean, var))
-    s = 1.0 / np.sqrt(var + TT.BN_EPS)
-    mag = np.maximum(np.abs(got), np.abs(want))
-    conv_mag = (mag + bf16_ulp(mag)) / s + np.abs(b - mean)
-    tol = (bf16_ulp(mag) + s * bf16_ulp(conv_mag)
-           + 1e-5 * np.abs(want).max())
-    diff = np.abs(got - want)
-    assert np.all(diff <= tol), f"max excess {(diff - tol).max()}"
-
-
-def assert_within_top_bf16_ulp(got, want):
-    """Every entry within one bf16 ulp of the largest entry of ``want``."""
-    diff = np.abs(got - want).max()
-    assert diff <= bf16_ulp(np.abs(want).max()), f"max diff {diff}"
 
 
 def _layer_input(i, seed=0, b=2, t=60):
@@ -326,10 +298,11 @@ def _block_case(tp, i, bf16, b, t, device):
 
 
 def _block_and_grad(x, g, args, bf16):
-    """The block's output, input cotangent and saved ReLU mask."""
+    """The block's output, input cotangent and saved ReLU mask (as bool:
+    the bf16 block's kernel saves it as bits)."""
     xk = x.clone().requires_grad_(True)
     out = (TT._BlockFastBf16 if bf16 else TT._BlockFast).apply(xk, *args)
-    mask = out.grad_fn.saved_tensors[0]
+    mask = mask_bool(out.grad_fn.saved_tensors[0], out.shape[-1])
     out.backward(g)
     return out.detach(), xk.grad, mask
 
@@ -352,9 +325,10 @@ def _assert_block_close(out, dx, p_out, p_dx, args, bf16):
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("i", LAYERS)
 def test_fast_block_on_card_matches_plain(i, bf16):
-    """The card's fast blocks (cuDNN's bf16 convolution, the float32-output
-    products of the f32 block's backward) against fast_block_plain on the
-    card, at the headline length, with the bars of the CPU test above."""
+    """The card's fast blocks (the bf16 block's implicit-GEMM kernel, the
+    float32-output products of the f32 block's backward) against
+    fast_block_plain on the card, at the headline length, with the bars of
+    the CPU test above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     tp = port_random_xv_plda_params(np.random.default_rng(0),
