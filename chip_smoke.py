@@ -16,8 +16,8 @@ Phases, one JSON line each:
               when torch sees no CUDA card.
   2. build    nvcc builds the port's kernel sources, csrc/chol.cu,
               csrc/gmm.cu, csrc/gmm_stats_fwd.cu, csrc/gmm_stats_bwd.cu,
-              csrc/adpcm.cu and csrc/tdnn_conv.cu, one process each, side by
-              side, into csrc/_build/.
+              csrc/adpcm.cu, csrc/tdnn_conv.cu and csrc/asp_pool.cu, one
+              process each, side by side, into csrc/_build/.
   3. launch   each of fused_loglike's two launches (the three-piece bf16
               split of aug(x), the six-product split GEMM; the projection's
               split between them is plain torch), of stats_fwd's three
@@ -94,6 +94,22 @@ Phases, one JSON line each:
  13. slice_xv_fast_f32  the same with FastPath(tdnn_bf16_act=False),
               PGD-10: every count 0.
  14. slice_xv_exact  the same with FastPath(enabled=False), PGD-10.
+ 14b. ecapa  ECAPA-TDNN at the ecapa_pgd10_b256 cell's widths and shape
+              (benchmark/configs/ecapa_tdnn.json: C = 1024, 256 waves of
+              3 s, 298 frames): tdnn_conv in ECAPA's form (reflect
+              padding, affine BN, 128-wide tiles) for each distinct block
+              of the 30 (benchmark/models/ecapa_tdnn.layout), and
+              asp_stats at 256 x 298 x 1536, each direction against its
+              plain version (fast_block_plain with gamma, beta at the
+              affine bf16 bar, the cotangent within two bf16 ulps of its
+              top; stats_fwd_plain / stats_bwd_plain at 1e-5), each
+              launch timed alone, through its wrapper and as its plain
+              version, against its bound (benchmark/flops/ecapa_tdnn:
+              blocks, pool_fwd, pool_bwd), summed over a PGD-10 call;
+              then slice_ecapa: EcapaCos with FastPath(), 10 enrolled
+              speakers, make_decision and PGD-10 on 256 waves of 3 s:
+              tdnn_conv 600 (30 a direction an iteration), asp_stats 20,
+              every other count 0.
  15. audionet_small_reference  the card's AudioNet scores and embeddings
               (exact path) against the CPU's on weights from one numpy
               seed.
@@ -308,8 +324,9 @@ Phases, one JSON line each:
               defended-shape case, 64 x 150 frames; fused_loglike,
               stats_fwd and cholesky_rt with their siren-shape case;
               cholesky_rt with its cli-shape case), with
-              its launches on every slice, and the port's own kernel
-              adpcm (no Pallas counterpart).
+              its launches on every slice, and the port's own kernels
+              adpcm, tdnn_conv (with its ECAPA-shape case) and asp_stats
+              (no Pallas counterpart).
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -2272,6 +2289,233 @@ def phase_tdnn_conv(torch):
         raise RuntimeError(f"tdnn_conv: {len(bad)} layers off their bars: "
                            f"{bad}")
     return rec
+
+
+ECAPA_BATCH, ECAPA_SAMPLES = 256, 48000   # the ecapa_pgd10_b256 cell's calls
+ECAPA_LAUNCHES = 60       # tdnn_conv launches of an ECAPA PGD iteration
+ASP_LAUNCHES = 2          # ... asp_stats launches of one
+
+
+def ecapa_config():
+    """benchmark/configs/ecapa_tdnn.json, the ECAPA cell's configuration."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "benchmark", "configs",
+                           "ecapa_tdnn.json")) as f:
+        return json.load(f)
+
+
+def ecapa_forms(cfg):
+    """{(C_in, C_out, k, dilation): launches a forward} of ECAPA's TDNN
+    blocks (benchmark/models/ecapa_tdnn.layout), in order of first use."""
+    from benchmark.models.ecapa_tdnn import layout
+    forms = {}
+    for prefix, cin, cout, k in layout(cfg):
+        parts = prefix.split(".")
+        dil = cfg["dilations"][int(parts[1])] if (
+            parts[0] == "blocks" and k > 1) else 1
+        forms[(cin, cout, k, dil)] = forms.get((cin, cout, k, dil), 0) + 1
+    return forms
+
+
+def affine_block_ok(torch, got, want, b, a, c):
+    """tests/tdnn_bars.py's assert_bf16_affine_close as a bool: the conv
+    output at most (|out| + one ulp + |c|) / |a| + |b| in magnitude, one
+    bf16 ulp of it moves the output by |a| ulps, plus the output's own
+    rounding."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs())
+    abs_a = a.abs().clamp(min=1e-30)
+    conv_mag = (mag + bf16_ulp(torch, mag) + c.abs()) / abs_a + b.abs()
+    tol = (bf16_ulp(torch, mag) + abs_a * bf16_ulp(torch, conv_mag)
+           + 1e-5 * want.abs().max())
+    return bool(((got - want).abs() <= tol).all())
+
+
+def phase_ecapa_kernels(torch):
+    """csrc/tdnn_conv.cu in ECAPA's form and csrc/asp_pool.cu at the
+    ECAPA cell's shapes (256 waves x 298 frames, C = 1024, MFA 1536): each
+    distinct TDNN block (C_in, C_out, k, dilation) with random weights and
+    an affine BN, forward and backward through ``tdnn_conv`` against
+    ``fast_block_plain`` (float64 convolutions on F.pad's reflect padding)
+    and the statistics pooling against ``stats_fwd_plain`` /
+    ``stats_bwd_plain``; the CUDA-event ms of each launch alone (operands
+    built), of the wrapper call (the reflect gather and the fold
+    included), of the plain version and, for the blocks, of the im2col +
+    cuBLAS block (library); bounds from benchmark/flops/ecapa_tdnn.
+    Returns the kernels line's records of the two kernels, summed over a
+    PGD-10 call."""
+    from benchmark.flops import ecapa_tdnn as counts
+    from benchmark.flops.frontend import frames
+    from speakerguard_tpu_torch.models import tdnn as T
+    from speakerguard_tpu_torch.ops import asp_pool as AP
+    from speakerguard_tpu_torch.ops import tdnn_conv as TC
+    cfg = ecapa_config()
+    b, (t, _, _) = ECAPA_BATCH, frames(cfg, ECAPA_SAMPLES)
+    lib, w = TC._lib(), TC.tdnn_conv
+    gen = torch.Generator(device="cuda").manual_seed(24)
+
+    def uni(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+
+    def bound_ms(ops, nbytes):
+        return 1e3 * max(ops / 989e12, nbytes / 3.35e12)
+
+    per = f"PGD-10 call ({PGD_ITERS} x 30 blocks x 2 directions)"
+    conv = {"per": per, "ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
+            "library_ms": 0.0, "bound_ms": 0.0}
+    bad = []
+    for (cin, cout, k, dil), n in ecapa_forms(cfg).items():
+        bnd = 1.0 / np.sqrt(cin * k)
+        wt, bias = uni((cout, cin, k), -bnd, bnd), uni((cout,), -bnd, bnd)
+        mean, var = uni((cout,), 0.0, 0.1), uni((cout,), 0.5, 1.5)
+        gamma, beta = uni((cout,), 0.5, 1.5), uni((cout,), -0.1, 0.1)
+        args = (wt, bias, mean, var, dil, gamma, beta)
+        x = torch.randn(b, t, cin, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        g = torch.randn(b, t, cout, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        w.reset_counts()
+        out, saved = w.forward(x, *args)
+        gx = w.backward(g, *saved, dil, gamma)
+        torch.cuda.synchronize()
+        launched = (w.launches, w.plain_calls)
+        mask = TC.mask_bool(saved[0], cout)
+        p_out, p_gx = T.fast_block_plain(x, wt, bias, mean, var, dil, g,
+                                         True, mask, gamma, beta)
+        a, c = TC.affine_bn(mean, var, gamma, beta)
+        top = p_gx.float().abs().max()
+        rec = {"phase": "ecapa_tdnn_conv", "shape": [b, t, cin],
+               "cout": cout, "k": k, "dilation": dil, "per_forward": n,
+               "row_stride": TC.rows_layout(out)[0],
+               "out_ok": affine_block_ok(torch, out, p_out, bias, a, c),
+               "dx_max_ulps": float((gx.float() - p_gx.float()).abs().max()
+                                    / bf16_ulp(torch, top)),
+               "launches": list(launched)}
+        rec["ok"] = (rec["out_ok"] and rec["dx_max_ulps"] <= 2.0
+                     and launched == (2, 0))
+        fop = TC.fwd_operands(x, *args)
+        bop = TC.bwd_operands(g, *saved, dil)
+        l_out, l_mask, w16 = TC.block_fwd_plain(x, *args)
+        for d, entry, op, wrapped, library in (
+                ("fwd", "sg_tdnn_conv_fwd", fop,
+                 lambda: w.forward(x, *args),
+                 lambda: TC.block_fwd_plain(x, *args)),
+                ("bwd", "sg_tdnn_conv_bwd", bop,
+                 lambda: w.backward(g, *saved, dil, gamma),
+                 lambda: TC.block_bwd_plain(g, l_mask, w16, var, dil,
+                                            gamma))):
+            rec[f"{d}_ms"] = cuda_ms(
+                lambda: TC._call(getattr(lib, entry), op, x.device), 2, 10)
+            rec[f"{d}_wrapper_ms"] = cuda_ms(wrapped, 2, 10)
+            rec[f"{d}_library_ms"] = cuda_ms(library, 1, 3)
+            rec[f"{d}_bound_ms"] = bound_ms(
+                2.0 * b * t * cin * k * cout,
+                2.0 * (b * t * cin + cout * cin * k + b * t * cout))
+            for key in ("ms", "wrapper_ms", "library_ms", "bound_ms"):
+                conv[key] += PGD_ITERS * n * rec[f"{d}_{key}"]
+        rec["fwd_bwd_plain_ms"] = cuda_ms(
+            lambda: T.fast_block_plain(x, wt, bias, mean, var, dil, g, True,
+                                       mask, gamma, beta), 1, 2)
+        conv["plain_ms"] += PGD_ITERS * n * rec["fwd_bwd_plain_ms"]
+        emit(rec)
+        if not rec["ok"]:
+            bad.append(rec)
+        del fop, bop, saved, out, gx, p_out, p_gx, l_out, l_mask, mask
+        torch.cuda.empty_cache()
+    conv["roofline_pct"] = 100 * conv["bound_ms"] / conv["ms"]
+    emit({"phase": "ecapa_tdnn_conv", **conv})
+
+    c = cfg["mfa_channels"]
+    logits = 2.0 * torch.randn(b, t, c, device="cuda", generator=gen)
+    m = torch.randn(b, t, c, device="cuda", generator=gen)
+    m[:, :, 0] = 0.25          # a channel of variance 0: the clamp's side
+    m = m.to(torch.bfloat16)
+    gmu = torch.randn(b, c, device="cuda", generator=gen)
+    gsig = torch.randn(b, c, device="cuda", generator=gen)
+    eps, pool = 1e-12, AP.asp_stats
+    pool.reset_counts()
+    saved = pool.forward(logits, m, eps)
+    dl, dm = pool.backward(logits, m, eps, *saved, gmu, gsig)
+    torch.cuda.synchronize()
+    launched = (pool.launches, pool.plain_calls)
+    want = AP.stats_fwd_plain(logits, m, eps)
+    w_dl, w_dm = AP.stats_bwd_plain(logits, m, eps, *want, gmu, gsig)
+
+    def rel(got, ref):
+        return float((got.double() - ref.double()).abs().max()
+                     / ref.double().abs().max())
+
+    top = w_dm.float().abs().max()
+    stats = {"phase": "ecapa_asp_stats", "shape": [b, t, c],
+             "per": f"PGD-10 call ({PGD_ITERS} x 2 directions)",
+             "mu_rel": rel(saved[0], want[0]),
+             "sigma_rel": rel(saved[1], want[1]),
+             "dlogits_rel": rel(dl, w_dl),
+             "dm_max_ulps": float((dm.float() - w_dm.float()).abs().max()
+                                  / bf16_ulp(torch, top)),
+             "launches": list(launched)}
+    stats["ok"] = (max(stats["mu_rel"], stats["sigma_rel"],
+                       stats["dlogits_rel"]) <= 1e-5
+                   and float((dm.float() - w_dm.float()).abs().max())
+                   <= float(bf16_ulp(torch, top)) + 1e-5 * float(top)
+                   and launched == (2, 0))
+    stats["fwd_ms"] = cuda_ms(lambda: pool.forward(logits, m, eps), 2, 10)
+    stats["bwd_ms"] = cuda_ms(lambda: pool.backward(
+        logits, m, eps, *saved, gmu, gsig), 2, 10)
+    stats["fwd_plain_ms"] = cuda_ms(
+        lambda: AP.stats_fwd_plain(logits, m, eps), 1, 5)
+    stats["bwd_plain_ms"] = cuda_ms(lambda: AP.stats_bwd_plain(
+        logits, m, eps, *want, gmu, gsig), 1, 5)
+    stats["fwd_bound_ms"] = bound_ms(*counts.pool_fwd(cfg, b, t))
+    stats["bwd_bound_ms"] = bound_ms(*counts.pool_bwd(cfg, b, t))
+    for key in ("ms", "plain_ms", "bound_ms"):
+        stats[key] = PGD_ITERS * (stats[f"fwd_{key}"] + stats[f"bwd_{key}"])
+    stats["roofline_pct"] = 100 * stats["bound_ms"] / stats["ms"]
+    emit(stats)
+    if not stats["ok"]:
+        bad.append(stats)
+    if bad:
+        raise RuntimeError(f"ecapa kernels: {len(bad)} cases off their "
+                           f"bars: {bad}")
+    return conv, stats
+
+
+def phase_ecapa_slice(torch, wrappers, profile_dir):
+    """slice_ecapa: EcapaCos at the published widths (weights from numpy
+    seed 0), 10 enrolled speakers with standard-normal embeddings, task
+    CSI-E, 256 utterances of 3 s: make_decision, then PGD-10 with
+    FastPath(): tdnn_conv 60 an iteration, asp_stats 2, every other count
+    0.  Returns {slice: launch counts}, asp_stats among them."""
+    from speakerguard_tpu_torch.models.base import FastPath
+    from speakerguard_tpu_torch.models.ecapa import (EcapaCos,
+                                                     random_ecapa_params)
+    from speakerguard_tpu_torch.ops.asp_pool import asp_stats
+    cfg = ecapa_config()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    model = EcapaCos(random_ecapa_params(
+        rng, cfg["channels"], cfg["frontend"]["num_ceps"],
+        cfg["res2net_scale"], cfg["se_channels"], cfg["attention_channels"],
+        cfg["mfa_channels"], cfg["embedding_dim"], device="cuda"),
+        fast=FastPath())
+    n_spk, emb = cfg["enrolled_speakers"], cfg["embedding_dim"]
+    model.set_enrollment([f"spk{i}" for i in range(n_spk)], torch.tensor(
+        rng.standard_normal((n_spk, emb)), dtype=torch.float32,
+        device="cuda"))
+    x = torch.tensor(rng.uniform(-0.3, 0.3, (ECAPA_BATCH, ECAPA_SAMPLES)),
+                     dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "setup_ecapa", "seconds": time.perf_counter() - t0})
+    wrappers = {**wrappers, "asp_stats": asp_stats}
+    expected = {k: 0 for k in wrappers}
+    expected["tdnn_conv"] = ECAPA_LAUNCHES * PGD_ITERS
+    expected["asp_stats"] = ASP_LAUNCHES * PGD_ITERS
+    fields = {"model": "ecapa_tdnn", "channels": cfg["channels"],
+              "mfa": cfg["mfa_channels"], "emb_dim": emb}
+    return {"slice_ecapa": run_slice(torch, "slice_ecapa", model, x,
+                                     wrappers, expected, profile_dir,
+                                     fields, ECAPA_BATCH, PGD_ITERS)}
 
 
 def phase_xv_small_reference(torch):
@@ -4607,7 +4851,7 @@ def main(argv):
 
     t0 = time.perf_counter()
     sources = ("chol", "gmm", "gmm_stats_fwd", "gmm_stats_bwd", "adpcm",
-               "tdnn_conv")
+               "tdnn_conv", "asp_pool")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -4644,6 +4888,10 @@ def main(argv):
     del models, x
     torch.cuda.empty_cache()
     launches.update(phase_xv_slices(torch, wrappers, profile_dir))
+    torch.cuda.empty_cache()
+    ecapa_conv, ecapa_pool = phase_ecapa_kernels(torch)
+    torch.cuda.empty_cache()
+    launches.update(phase_ecapa_slice(torch, wrappers, profile_dir))
     torch.cuda.empty_cache()
     phase_audionet_small_reference(torch)
     launches.update(phase_audionet_slices(torch, wrappers, profile_dir))
@@ -4777,7 +5025,22 @@ def main(argv):
         "bound_by": "operations (bytes on layer 1)",
         "library_ms": tdnn_rec["library_ms"],
         "wrapper_ms": tdnn_rec["wrapper_ms"],
-        "roofline_pct": tdnn_rec["roofline_pct"]})
+        "roofline_pct": tdnn_rec["roofline_pct"],
+        "ecapa_shape": {**ecapa_conv, "bound_by": "operations",
+                        "launches": launches["slice_ecapa"]["tdnn_conv"]}})
+    # ECAPA's attentive statistics: no JAX counterpart at all
+    kernels.append({
+        "name": "asp_stats", "route": "cuda",
+        "source": "speakerguard_tpu_torch/csrc/asp_pool.cu",
+        "replaces": None, "pallas_counterpart": None,
+        "launches": launches["slice_ecapa"]["asp_stats"],
+        "launches_by_path": {p: v["asp_stats"] for p, v in launches.items()
+                             if "asp_stats" in v},
+        **{k: ecapa_pool[k] for k in (
+            "per", "shape", "ms", "plain_ms", "bound_ms", "roofline_pct",
+            "fwd_ms", "bwd_ms", "fwd_plain_ms", "bwd_plain_ms",
+            "fwd_bound_ms", "bwd_bound_ms")},
+        "bound_by": "bytes", "library_ms": None})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -106,7 +106,15 @@ def add_system_subparsers(parser, with_model_file=True):
     an.add_argument("-extractor", default=None)
     an.add_argument("-label_encoder",
                     default="./label-encoder-audionet-Spk251_test.txt")
-    return iv, xv, an
+
+    ec = sub.add_parser("ecapa")
+    ec.add_argument("-extractor",
+                    default="pre-trained-models/ecapa/embedding_model.ckpt",
+                    help="a state dict of SpeechBrain's ECAPA_TDNN")
+    if with_model_file:
+        ec.add_argument("-model_file",
+                        default="model_file/ecapa/speaker_model_ecapa")
+    return iv, xv, an, ec
 
 
 def build_model(args, need_enroll=True):
@@ -147,6 +155,12 @@ def build_model(args, need_enroll=True):
             params, state = load_audionet_from_torch_state(
                 torch.load(args.extractor, map_location="cpu"), device=dev)
         base = AudioNet(params, state, spk_ids=spk_ids)
+    elif args.system_type == "ecapa":
+        from speakerguard_tpu_torch.models.ecapa import (
+            EcapaCos, load_ecapa_from_torch_state)
+        base = EcapaCos(load_ecapa_from_torch_state(args.extractor,
+                                                    device=dev),
+                        model_file=model_file, threshold=threshold)
     else:
         raise NotImplementedError("Unsupported system type")
 

@@ -47,6 +47,24 @@
 //    for the previous products: the other consumer warpgroup's products
 //    fill that time, but the backward runs below the forward's rate.
 //
+// ECAPA-TDNN's blocks (models/ecapa.py) take the same kernels in a second
+// form, its epilogue compiled apart (the AFFINE template flag), so the
+// x-vector's launches run the code above unchanged:
+//
+//  - "same" convolutions with reflect padding need nothing of the kernels:
+//    the wrapper gathers the input into Ts = T + 2 P rows an utterance, P =
+//    (k - 1) dil / 2, its P rows at each end the reflected rows, and runs
+//    the valid convolution of that (T_out = T); the backward's T_in = Ts
+//    rows are the padded input's cotangent, whose 2 P edge rows the
+//    wrapper folds back onto the rows they reflect.
+//  - BN with an affine part: the epilogue computes out = bf16(r a + c)
+//    (r = m ? y : 0, a = s gamma, c = beta - mean a: an f32 product, then
+//    an f32 add) in place of bf16((r - mean) s); the backward's scale is a.
+//  - 128-column tiles (wgmma n128) where the output has at most 128
+//    columns: the Res2 branches (C_out = C_in = 128) and the attentive
+//    pooling's first layer (4608 -> 128) forward, the Res2 branches and the
+//    first layer (80 input channels) backward.
+//
 // Every C entry point returns cudaGetLastError() after its launch; a tensor
 // map that cannot be encoded returns 10000 + its CUresult.
 
@@ -59,6 +77,7 @@ constexpr int TN = GN;                        // columns of an output tile
 constexpr int TK = GK;                        // channels of a k-tile
 constexpr int NST = STAGES;                   // stages of the TMA ring
 constexpr int NARROW = 64;                    // the backward's tile for C_in <= 64
+constexpr int HALF = 128;                     // the tile for <= 128 columns
 constexpr int MAX_SMEM = 232448;
 
 // The stage ring of a tile BN columns wide: a stage holds the A box (TM x
@@ -81,14 +100,15 @@ struct ConvArgs {
   int a_shift;    // row offset of tap 0 in A: 0 forward, -(k-1) dil backward
   int n_cb;       // 64-channel blocks a tap
   int k_tiles;    // taps x n_cb
-  int n_ct;       // 256-column tiles
+  int n_ct;       // column tiles (BN wide)
   int n_tiles;    // row tiles x n_ct
   bf16* out;      // (rows, out_ld) bf16
   int out_ld;
   uint8_t* mask;  // forward: written; backward: read; (mask_rows, mask_ld)
   int mask_ld;    // bytes a row, a multiple of 8
   int mask_rows;  // backward: rows of g and of the mask
-  const float* vecs;  // forward: bias, mean, s, each vec_len; backward: s
+  const float* vecs;  // forward: bias, mean, s (AFFINE: bias, c, a), each
+                      // vec_len; backward: s (a)
   int vec_len;
 };
 
@@ -172,6 +192,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (128 x 16,
+// K-major in shared memory)^T
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x BN, f32) += A (64 x 16) . B (BN x 16)^T, both K-major in shared
+// memory: the forward's products in a 256- or 128-column tile
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
+                                         uint64_t db) {
+  wgmma_m64n256k16(d, da, db);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  wgmma_m64n128k16(d, da, db, 1);
+}
+
 // d (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (64 x 16,
 // K-major in shared memory)^T
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
@@ -205,11 +266,14 @@ __device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int k) {
 // time, the quad transposes its 4 x 4 words so that thread q holds group
 // 4 j4 + q whole and stores it as 16 bytes; each mask word (32 channels of
 // a row) is gathered across the quad, and thread q stores words q and
-// q + 4 of the tile's 8 a row.  A group past C_out but inside the row
-// stride writes pad columns, which nothing reads.
+// q + 4 of the tile's 8 a row (of a 128-column tile's 4, word q).  A group
+// past C_out but inside the row stride writes pad columns, which nothing
+// reads.  AFFINE: the BN is out = bf16(r a + c) with (mean, s) holding
+// (c, a).
+template <int BN, bool AFFINE>
 __device__ __forceinline__ void fwd_epilogue(const ConvArgs& p,
                                              const float* vec,
-                                             float (&acc)[128], int row0,
+                                             float (&acc)[BN / 2], int row0,
                                              int n0, int q) {
   const float* bias = vec;
   const float* mean = vec + p.vec_len;
@@ -228,7 +292,7 @@ __device__ __forceinline__ void fwd_epilogue(const ConvArgs& p,
                                           n0 / 8);
   }
 #pragma unroll
-  for (int j4 = 0; j4 < 8; ++j4) {
+  for (int j4 = 0; j4 < BN / 32; ++j4) {
     uint32_t word[2] = {0u, 0u};
     uint32_t w[2][4];
 #pragma unroll
@@ -248,9 +312,15 @@ __device__ __forceinline__ void fwd_epilogue(const ConvArgs& p,
         const float y1 = __fadd_rn(__high2float(y16), bb.y);
         const bool m0 = live[h] && c0 && y0 > 0.f;
         const bool m1 = live[h] && c1 && y1 > 0.f;
-        const __nv_bfloat162 o = __floats2bfloat162_rn(
-            __fmul_rn(__fsub_rn(m0 ? y0 : 0.f, mm.x), ss.x),
-            __fmul_rn(__fsub_rn(m1 ? y1 : 0.f, mm.y), ss.y));
+        __nv_bfloat162 o;
+        if constexpr (AFFINE)
+          o = __floats2bfloat162_rn(
+              __fadd_rn(__fmul_rn(m0 ? y0 : 0.f, ss.x), mm.x),
+              __fadd_rn(__fmul_rn(m1 ? y1 : 0.f, ss.y), mm.y));
+        else
+          o = __floats2bfloat162_rn(
+              __fmul_rn(__fsub_rn(m0 ? y0 : 0.f, mm.x), ss.x),
+              __fmul_rn(__fsub_rn(m1 ? y1 : 0.f, mm.y), ss.y));
         w[h][jj] = *reinterpret_cast<const uint32_t*>(&o);
         word[h] |= ((uint32_t)m0 | ((uint32_t)m1 << 1)) << (8 * jj + 2 * q);
       }
@@ -307,8 +377,9 @@ __device__ __forceinline__ void bwd_epilogue(const ConvArgs& p,
 // every TMA load.  Persistent over tiles as gemm_persistent: tile t is
 // column tile t % n_ct of row tile t / n_ct, so a row tile's A boxes are
 // read from L2 by its neighbours.  BN: the tile's columns (256, or 64 for
-// the backward of a layer of at most 64 input channels).
-template <bool BWD, int BN>
+// the backward of a layer of at most 64 input channels, 128 for at most 128
+// columns).  AFFINE: the forward's affine BN (the header).
+template <bool BWD, int BN, bool AFFINE>
 __device__ __forceinline__ void conv_body(const CUtensorMap* map_a,
                                           const CUtensorMap* map_b,
                                           const ConvArgs& p) {
@@ -374,7 +445,7 @@ __device__ __forceinline__ void conv_body(const CUtensorMap* map_a,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     if constexpr (!BWD) {
-      static_assert(BN == TN, "the forward runs 256-column tiles");
+      static_assert(BN == TN || BN == HALF, "forward tiles: 256 or 128");
       // one group of products in flight while the next stage's are issued;
       // a stage is released once the group that read it is done
       int prev = -1;
@@ -387,7 +458,7 @@ __device__ __forceinline__ void conv_body(const CUtensorMap* map_a,
         const uint64_t db = sw128_desc(st + A_BYTES);
 #pragma unroll
         for (int kk = 0; kk < TK / 16; ++kk)
-          wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk);
+          wgmma_ss(acc, da + 2 * kk, db + 2 * kk);
         wgmma_commit();
         wgmma_wait<1>();
         fence_acc(acc);
@@ -401,7 +472,7 @@ __device__ __forceinline__ void conv_body(const CUtensorMap* map_a,
       wgmma_wait<0>();
       fence_acc(acc);
       if (lane == 0) mbar_arrive(&empty[prev]);
-      fwd_epilogue(p, vec, acc, m0 + frag_row, n0, q);
+      fwd_epilogue<BN, AFFINE>(p, vec, acc, m0 + frag_row, n0, q);
     } else {
       // the mask bytes of the thread's two rows, one k-tile ahead
       const int r0 = m0 + p.a_shift + frag_row;
@@ -455,11 +526,12 @@ __device__ __forceinline__ void conv_body(const CUtensorMap* map_a,
   }
 }
 
+template <int BN, bool AFFINE>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 tdnn_conv_fwd_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b,
                      const ConvArgs p) {
-  conv_body<false, TN>(&map_a, &map_b, p);
+  conv_body<false, BN, AFFINE>(&map_a, &map_b, p);
 }
 
 template <int BN>
@@ -467,7 +539,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 tdnn_conv_bwd_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b,
                      const ConvArgs p) {
-  conv_body<true, BN>(&map_a, &map_b, p);
+  conv_body<true, BN, false>(&map_a, &map_b, p);
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -501,27 +573,30 @@ int launch(K kernel, const CUtensorMap& map_a, const CUtensorMap& map_b,
 
 // Forward.  x: x_rows flat rows of cin channels, row stride x_ld (a
 // multiple of 8) bf16; wf (cout, k n_cb 64) bf16, wf[o, (j n_cb + b) 64 +
-// c'] = w[o, 64 b + c', j], zero past cin; vecs: bias, mean, s (each
-// vec_len >= 256 ceil(cout / 256) floats, zero-padded) -> out (rows, out_ld)
-// bf16 (rows with t = r % ts < t_out, columns < cout) and the mask bits
-// (rows, mask_ld) bytes, every row < rows.
+// c'] = w[o, 64 b + c', j], zero past cin; vecs: bias, mean, s, or with
+// ``affine`` bias, c, a (each vec_len >= 256 ceil(cout / 256) floats,
+// zero-padded) -> out (rows, out_ld) bf16 (rows with t = r % ts < t_out,
+// columns < cout) and the mask bits (rows, mask_ld) bytes, every row <
+// rows.  The affine form takes 128-column tiles where cout <= 128.
 extern "C" int sg_tdnn_conv_fwd(const void* x, int x_rows, int cin, int x_ld,
                                 const void* wf, int k, const float* vecs,
                                 int vec_len, void* out, int out_ld,
                                 void* mask, int mask_ld, int rows, int ts,
-                                int t_out, int cout, int dil, void* stream) {
+                                int t_out, int cout, int dil, int affine,
+                                void* stream) {
   cudaError_t err = bind_context();
   if (err != cudaSuccess) return (int)err;
   ConvArgs p;
+  const int bn = affine && cout <= HALF ? HALF : TN;
   p.n_cb = cdiv(cin, TK);
-  p.n_ct = cdiv(cout, TN);
+  p.n_ct = cdiv(cout, bn);
   if (x_ld % 8 != 0 || mask_ld % 8 != 0 || mask_ld * 8 < cout ||
-      vec_len < p.n_ct * TN || out_ld < cout || rows < 1 || ts < t_out)
+      vec_len < p.n_ct * bn || out_ld < cout || rows < 1 || ts < t_out)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
   int rc = make_map(&map_a, x, x_rows, cin, x_ld, TM);
   if (rc != 0) return rc;
-  rc = make_map(&map_b, wf, cout, k * p.n_cb * TK, k * p.n_cb * TK, TN);
+  rc = make_map(&map_b, wf, cout, k * p.n_cb * TK, k * p.n_cb * TK, bn);
   if (rc != 0) return rc;
   p.rows = rows;
   p.ts = ts;
@@ -538,8 +613,14 @@ extern "C" int sg_tdnn_conv_fwd(const void* x, int x_rows, int cin, int x_ld,
   p.mask_rows = rows;
   p.vecs = vecs;
   p.vec_len = vec_len;
-  return launch<TN>(tdnn_conv_fwd_kernel, map_a, map_b, p, 3 * vec_len,
-                    static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn == HALF)
+    return launch<HALF>(tdnn_conv_fwd_kernel<HALF, true>, map_a, map_b, p,
+                        3 * vec_len, st);
+  return affine ? launch<TN>(tdnn_conv_fwd_kernel<TN, true>, map_a, map_b, p,
+                             3 * vec_len, st)
+                : launch<TN>(tdnn_conv_fwd_kernel<TN, false>, map_a, map_b,
+                             p, 3 * vec_len, st);
 }
 
 // Input gradient.  g: g_rows flat rows of cout channels, row stride g_ld (a
@@ -557,7 +638,7 @@ extern "C" int sg_tdnn_conv_bwd(const void* g, int g_rows, int g_ld,
   cudaError_t err = bind_context();
   if (err != cudaSuccess) return (int)err;
   ConvArgs p;
-  const int bn = cin <= NARROW ? NARROW : TN;
+  const int bn = cin <= NARROW ? NARROW : cin <= HALF ? HALF : TN;
   p.n_cb = cdiv(cout, TK);
   p.n_ct = cdiv(cin, bn);
   if (g_ld % 8 != 0 || mask_ld % 8 != 0 || mask_ld < p.n_cb * 8 ||
@@ -587,6 +668,9 @@ extern "C" int sg_tdnn_conv_bwd(const void* g, int g_rows, int g_ld,
   if (bn == NARROW)
     return launch<NARROW>(tdnn_conv_bwd_kernel<NARROW>, map_a, map_b, p,
                           vec_len, st);
+  if (bn == HALF)
+    return launch<HALF>(tdnn_conv_bwd_kernel<HALF>, map_a, map_b, p, vec_len,
+                        st);
   return launch<TN>(tdnn_conv_bwd_kernel<TN>, map_a, map_b, p, vec_len, st);
 }
 

@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.models.gmm import fast_dot_dtype
 from speakerguard_tpu_torch.ops.tdnn_conv import (
-    BN_EPS, _conv1d, _conv1d_input_grad, empty_rows_like, tdnn_conv)
+    BN_EPS, _conv1d, _conv1d_input_grad, affine_bn, empty_rows_like,
+    same_pad, tdnn_conv)
 
 # (kernel, dilation, out_channels) for tdnn1..tdnn5; input channels = 30
 TDNN_SPEC = ((5, 1, 512), (5, 2, 512), (7, 3, 512), (1, 1, 512), (1, 1, 1500))
@@ -139,22 +140,28 @@ class _BlockFastBf16(torch.autograd.Function):
     bf16 transposed convolution, its float32 sum rounded once to bf16.
     ``tdnn_conv`` runs both: the kernel on a CUDA tensor (its output a view
     in the input's row stride, its mask bits), the plain version on a CPU
-    one; the first saved tensor is the mask (``tdnn_conv.mask_bool``)."""
+    one; the first saved tensor is the mask (``tdnn_conv.mask_bool``).
+    ECAPA-TDNN's blocks pass ``gamma``, ``beta``: an affine BN after a
+    "same" convolution with reflect padding, the padding's cotangent folded
+    back onto the rows it reflects."""
 
     @staticmethod
-    def forward(ctx, x, w, b, mean, var, dilation):
-        out, saved = tdnn_conv.forward(x, w, b, mean, var, dilation)
-        ctx.save_for_backward(*saved)
+    def forward(ctx, x, w, b, mean, var, dilation, gamma=None, beta=None):
+        out, saved = tdnn_conv.forward(x, w, b, mean, var, dilation, gamma,
+                                       beta)
+        ctx.save_for_backward(*saved, gamma)
         ctx.dilation = dilation
         return out
 
     @staticmethod
     def backward(ctx, g):
-        gx = tdnn_conv.backward(g, *ctx.saved_tensors, ctx.dilation)
-        return gx, None, None, None, None, None
+        *saved, gamma = ctx.saved_tensors
+        gx = tdnn_conv.backward(g, *saved, ctx.dilation, gamma)
+        return (gx,) + (None,) * 7
 
 
-def fast_block_plain(x, w, b, mean, var, dilation, g, bf16, mask=None):
+def fast_block_plain(x, w, b, mean, var, dilation, g, bf16, mask=None,
+                     gamma=None, beta=None):
     """The plain version of ``_BlockFast`` (``bf16=False``) and
     ``_BlockFastBf16`` on (B, T, C) tensors: the block's own float32
     elementwise steps and roundings around convolutions that ``F.conv1d``
@@ -164,21 +171,41 @@ def fast_block_plain(x, w, b, mean, var, dilation, g, bf16, mask=None):
     output cotangent ``g``).  ``mask`` (the block's saved ReLU mask)
     replaces the plain forward's own in the backward: a conv output within
     round-off of 0 can take either sign in two sums of different order, and
-    one flipped mask entry moves the cotangent by a whole term."""
+    one flipped mask entry moves the cotangent by a whole term.
+    ``gamma``, ``beta``: ECAPA's form, an affine BN
+    (``ops/tdnn_conv.affine_bn``) after ``F.pad``'s reflect padding, whose
+    float64 autograd gives the input cotangent before the rounding."""
     f64 = torch.float64
     dt = torch.bfloat16 if bf16 else fast_dot_dtype(x.device)
     w_fwd = w.to(torch.bfloat16) if bf16 else w
-    y = F.conv1d(x.to(f64).transpose(1, 2), w_fwd.to(f64), None,
-                 dilation=dilation).transpose(1, 2).float()
+    pad = same_pad(w.shape[2], dilation) if gamma is not None else 0
+
+    def conv(xt, wt):
+        if pad:
+            xt = F.pad(xt, (pad, pad), mode="reflect")
+        return F.conv1d(xt, wt.to(f64), None, dilation=dilation)
+
+    y = conv(x.to(f64).transpose(1, 2), w_fwd).transpose(1, 2).float()
     if bf16:
         y = y.to(torch.bfloat16).float()
     y = y + b
     s = torch.rsqrt(var + BN_EPS)
-    out = _bn(torch.where(y > 0, y, 0.0), BNStats(mean, var))
+    r = torch.where(y > 0, y, 0.0)
+    if gamma is None:
+        out = _bn(r, BNStats(mean, var))
+    else:
+        a, c = affine_bn(mean, var, gamma, beta)
+        out, s = r * a + c, a
     mask = y > 0 if mask is None else mask
     gy = torch.where(mask, g.float() * s, 0.0).to(dt)
-    gx = F.conv_transpose1d(gy.to(f64).transpose(1, 2), w.to(dt).to(f64),
-                            dilation=dilation).transpose(1, 2).float()
+    gyt = gy.to(f64).transpose(1, 2)
+    if pad:
+        with torch.enable_grad():
+            xt = x.detach().to(f64).transpose(1, 2).requires_grad_(True)
+            (gx,) = torch.autograd.grad(conv(xt, w.to(dt)), xt, gyt)
+    else:
+        gx = F.conv_transpose1d(gyt, w.to(dt).to(f64), dilation=dilation)
+    gx = gx.transpose(1, 2).float()
     if bf16:
         return out.to(torch.bfloat16), gx.to(torch.bfloat16)
     return out, gx

@@ -14,6 +14,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,6 +63,21 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+def launch_on(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a C entry point called with ``device``'s
+    card current (a launch goes to the current card) and the raw handle of
+    that card's current stream last.  The guard is entered only when
+    another card is current: an attack step makes dozens of launches, and
+    the guard and a ``torch.cuda.Stream`` object cost more host time than
+    the entry point itself."""
+    idx = torch.cuda.current_device() if device.index is None else \
+        device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def check_rc(rc: int, what: str):

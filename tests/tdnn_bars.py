@@ -33,7 +33,24 @@ def assert_bf16_block_close(got, want, b, mean, var):
     assert np.all(diff <= tol), f"max excess {(diff - tol).max()}"
 
 
-def assert_within_top_bf16_ulp(got, want):
-    """Every entry within one bf16 ulp of the largest entry of ``want``."""
+def assert_within_top_bf16_ulp(got, want, ulps=1):
+    """Every entry within ``ulps`` bf16 ulps of the largest entry of
+    ``want``."""
     diff = np.abs(got - want).max()
-    assert diff <= bf16_ulp(np.abs(want).max()), f"max diff {diff}"
+    assert diff <= ulps * bf16_ulp(np.abs(want).max()), f"max diff {diff}"
+
+
+def assert_bf16_affine_close(got, want, b, a, c):
+    """The bf16 output bar of a block whose BN is affine, out = r a + c
+    (``ops/tdnn_conv.affine_bn``): as ``assert_bf16_block_close``, the conv
+    output at most (|out| + one ulp + |c|) / |a| + |b| in magnitude, so one
+    ulp of it moves the output by |a| times that ulp, plus the output's own
+    rounding."""
+    b, a, c = (np.asarray(v, np.float32) for v in (b, a, c))
+    mag = np.maximum(np.abs(got), np.abs(want))
+    abs_a = np.maximum(np.abs(a), np.float32(1e-30))
+    conv_mag = (mag + bf16_ulp(mag) + np.abs(c)) / abs_a + np.abs(b)
+    tol = (bf16_ulp(mag) + abs_a * bf16_ulp(conv_mag)
+           + 1e-5 * np.abs(want).max())
+    diff = np.abs(got - want)
+    assert np.all(diff <= tol), f"max excess {(diff - tol).max()}"

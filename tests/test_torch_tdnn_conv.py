@@ -35,7 +35,8 @@ from speakerguard_tpu_torch.models import tdnn as TT
 from speakerguard_tpu_torch.models.base import FastPath
 from speakerguard_tpu_torch.ops import tdnn_conv as TC
 
-from tdnn_bars import assert_bf16_block_close, assert_within_top_bf16_ulp
+from tdnn_bars import (assert_bf16_affine_close, assert_bf16_block_close,
+                       assert_within_top_bf16_ulp)
 
 CSRC = Path(TC.__file__).resolve().parent.parent / "csrc"
 LAYERS = range(len(TT.TDNN_SPEC))
@@ -95,14 +96,18 @@ def emulate_fwd(op):
     acc = torch.zeros(rows, cout, dtype=torch.float64)
     for j in range(k):
         src = r + j * dil
-        inside = (src < op["x_rows"])[:, None]
-        a = torch.where(inside, x[src.clamp(max=op["x_rows"] - 1)], 0.0)
+        inside = ((src >= 0) & (src < op["x_rows"]))[:, None]
+        a = torch.where(inside, x[src.clamp(0, op["x_rows"] - 1)], 0.0)
         acc += a @ wf[:, j].T
     bias, mean, s = (v[:cout] for v in op["vecs"])
     y = acc.float().bfloat16().float() + bias
-    live = r % op["ts"] < op["t_out"]
+    t = r % op["ts"]
+    live = t < op["t_out"]
     m = live[:, None] & (y > 0)
-    o = ((torch.where(m, y, 0.0) - mean) * s).bfloat16()
+    if op["affine"]:       # (mean, s) hold (c, a)
+        o = (torch.where(m, y, 0.0) * s + mean).bfloat16()
+    else:
+        o = ((torch.where(m, y, 0.0) - mean) * s).bfloat16()
     _poison(op["out"], rows, op["out_ld"])
     _flat(op["out"], rows, op["out_ld"], cout)[live] = o[live]
     bits = torch.zeros(rows, op["mask_ld"] * 8, dtype=torch.uint8)
@@ -219,6 +224,52 @@ def test_ctypes_signatures_match_the_source(name):
     if name in order:
         names = [a.split()[-1].lstrip("*") for a in c_args[:-1]]
         assert names == list(_operands(name).keys())
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("affine", [False, True])
+def test_launch_plan_fills_the_operands_as_built(affine, layer, emulated,
+                                                 monkeypatch):
+    """A launch of a layout met before (its ``_Plan``) passes the C entry
+    point what ``fwd_operands`` and ``bwd_operands`` build: the same
+    entries in the same order, the same integers, tensors of the same
+    shape, stride and contents; layer 1's 30 channels copied into rows of
+    32 on both."""
+    seen = []
+    emulate = {"sg_tdnn_conv_fwd": emulate_fwd,
+               "sg_tdnn_conv_bwd": emulate_bwd}
+
+    def launch(entry, op, device):
+        seen.append((entry, op))
+        assert emulate[entry](op) == 0
+
+    monkeypatch.setattr(emulated, "_launch", launch)
+    tp = TT.random_tdnn(np.random.default_rng(3), device="cpu")
+    x, g, args = _block_case(tp, layer, 2, 30, 3)
+    if affine:
+        gen = torch.Generator().manual_seed(4)
+        c = args[0].shape[0]
+        args = args + (torch.rand(c, generator=gen) + 0.5,
+                       torch.rand(c, generator=gen) - 0.5)
+        g = torch.randn(x.shape[0], x.shape[1], c, generator=gen).to(
+            torch.bfloat16)
+    emulated._plans.clear()
+    for _ in range(2):
+        out, saved = emulated.forward(x, *args)
+        emulated.backward(g, *saved, args[4], *args[5:6])
+    assert [e for e, _ in seen] == ["sg_tdnn_conv_fwd", "sg_tdnn_conv_bwd"] * 2
+    for (_, first), (_, again) in zip(seen[:2], seen[2:]):
+        assert list(first) == list(again)
+        for k, a in first.items():
+            b = again[k]
+            if isinstance(a, torch.Tensor):
+                assert (a.shape, a.stride()) == (b.shape, b.stride()), k
+                if k not in ("out", "mask", "gx"):
+                    assert torch.equal(a, b), k
+            else:
+                assert a == b, k
+    assert torch.equal(seen[0][1]["out"], seen[2][1]["out"])
+    assert torch.equal(seen[1][1]["gx"], seen[3][1]["gx"])
 
 
 def _operands(entry):
@@ -451,6 +502,130 @@ def test_mask_bool_reads_both_forms():
 
 
 # ---------------------------------------------------------------------------
+# ECAPA-TDNN's forms: "same" convolutions with reflect padding, an affine
+# BN, 128-wide outputs
+# ---------------------------------------------------------------------------
+
+# (C_in, C_out, k, dilation): h0's taps, the Res2 branches at the smallest
+# and largest dilation, a 1x1 block
+FORMS = {"h0_k5": (80, 64, 5, 1), "res2_d2": (128, 128, 3, 2),
+         "res2_d4": (128, 128, 3, 4), "pointwise": (96, 160, 1, 1)}
+AFFINE_SHAPES = {"b2_t40": (2, 40, 0), "b3_t23_strided": (3, 23, 5)}
+
+
+def _affine_case(form, b, t, extra, device="cpu", seed=0):
+    """A block of ``form`` with random weights and affine BN: its bf16
+    input (B, T, C_in) as a view with ``extra`` rows an utterance beyond T,
+    an output cotangent (B, T, C_out) and the block's arguments (w, b,
+    mean, var, dilation, gamma, beta)."""
+    cin, cout, k, dil = form
+    gen = torch.Generator(device=device).manual_seed(1000 + seed)
+
+    def uni(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device=device)
+    bound = 1.0 / np.sqrt(cin * k)
+    w = uni((cout, cin, k), -bound, bound)
+    bias = uni((cout,), -bound, bound)
+    mean, var = uni((cout,), 0.0, 0.1), uni((cout,), 0.5, 1.5)
+    gamma, beta = uni((cout,), 0.5, 1.5), uni((cout,), -0.1, 0.1)
+    x = torch.randn(b, t + extra, cin, device=device, generator=gen)
+    x = x.to(torch.bfloat16)[:, :t]
+    g = torch.randn(b, t, cout, device=device,
+                    generator=gen).to(torch.bfloat16)
+    return x, g, (w, bias, mean, var, dil, gamma, beta)
+
+
+def _assert_affine_close_to_plain(x, g, args, out, dx, mask):
+    """The bf16 output within the affine bar of the float64 block, the
+    input cotangent within two bf16 ulps of its largest entry: one for
+    the GEMM's rounding, one for the fold, whose edge rows add two bf16
+    cotangents and round again."""
+    w, b, mean, var, dil, gamma, beta = args
+    p_out, p_dx = TT.fast_block_plain(x, w, b, mean, var, dil, g, True,
+                                      mask, gamma, beta)
+    a, c = TC.affine_bn(mean, var, gamma, beta)
+    assert_bf16_affine_close(out.float().cpu().numpy(),
+                             p_out.float().cpu().numpy(),
+                             *(v.cpu().numpy() for v in (b, a, c)))
+    assert_within_top_bf16_ulp(dx.float().cpu().numpy(),
+                               p_dx.float().cpu().numpy(), ulps=2)
+
+
+def test_reflect_rows_and_fold_are_torch_reflect_padding():
+    """reflect_rows is F.pad's reflect mode along time, in rows of 8; its
+    fold is that padding's cotangent (autograd of F.pad)."""
+    x = torch.randn(2, 11, 5)
+    want = torch.nn.functional.pad(x.transpose(1, 2), (3, 3),
+                                   mode="reflect").transpose(1, 2)
+    got = TC.reflect_rows(x, 3)
+    assert torch.equal(got, want) and got.stride(1) == 8
+    full = torch.randn(2, 17, 5)
+    xr = x.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(torch.nn.functional.pad(
+        xr.transpose(1, 2), (3, 3), mode="reflect").transpose(1, 2), xr,
+        full)
+    assert torch.allclose(TC.fold_reflected(full.clone(), 3), g, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", sorted(AFFINE_SHAPES))
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_plain_same_affine_block_matches_float64(form, shape):
+    """The plain block (CPU tensors) in ECAPA's forms against float64
+    F.conv1d on F.pad's reflect padding (``fast_block_plain``), forward and
+    input gradient; the 128-wide outputs, the 1x1 block and dilated taps
+    among them."""
+    w = TC.tdnn_conv
+    w.reset_counts()
+    x, g, args = _affine_case(FORMS[form], *AFFINE_SHAPES[shape])
+    out, dx, mask = _block_and_grad(x, g, args)
+    assert (w.launches, w.plain_calls) == (0, 2)
+    assert out.shape == g.shape and dx.shape == x.shape
+    _assert_affine_close_to_plain(x, g, args, out, dx, mask)
+    w.reset_counts()
+
+
+@pytest.mark.parametrize("shape", sorted(AFFINE_SHAPES))
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_kernel_route_same_affine_matches_plain(emulated, form, shape):
+    """ECAPA's forms through the kernel route (launches emulated): a
+    padded block's input gathered into T + 2 P rows an utterance and run
+    as a valid convolution (its output and mask the first T rows an
+    utterance of that stride), its cotangent folded back; a 1x1 block keeps
+    its input's row stride.  Both within the bars of the float64
+    block."""
+    cin, cout, k, dil = FORMS[form]
+    b, t, extra = AFFINE_SHAPES[shape]
+    x, g, args = _affine_case(FORMS[form], b, t, extra)
+    out, dx, mask = _block_and_grad(x, g, args)
+    pad = (k - 1) * dil // 2
+    ts = t + 2 * pad if pad else t + extra
+    assert out.shape == (b, t, cout) and dx.shape == x.shape
+    assert TC.rows_layout(out) == (ts, -(-cout // 8) * 8)
+    assert emulated.launches == 2
+    assert torch.isfinite(out.float()).all()
+    assert torch.isfinite(dx.float()).all()
+    _assert_affine_close_to_plain(x, g, args, out, dx, mask)
+
+
+SAME_REFUSALS = {
+    "even_span": (lambda a: a[:4] + (1,) + a[5:], (64, 64, 2, 1),
+                  "odd span"),
+    "too_short": (lambda a: a, (16, 16, 3, 4), "shorter"),
+    "gamma_only": (lambda a: a[:6] + (None,) + a[7:], (16, 16, 3, 1),
+                   "both gamma and beta"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SAME_REFUSALS))
+def test_same_affine_refusals(case):
+    fn, form, match = SAME_REFUSALS[case]
+    x, _, args = _affine_case(form, 2, 9, 0)
+    with pytest.raises(ValueError, match=match):
+        TC.tdnn_conv.forward(x, *fn(args))
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -537,3 +712,33 @@ def test_pgd10_launches_the_kernel_ten_times_an_iteration():
                                               device="cuda"), rng=0)
     torch.cuda.synchronize()
     assert (w.launches, w.plain_calls) == (100, 0)
+
+
+# ECAPA-TDNN's launches at its published widths (C = 1024, Res2 128, MFA
+# 1536, attention 128): h0, a block's 1x1 layers, the Res2 branches at
+# each dilation, MFA and the pooling's first layer
+CARD_FORMS = {"h0": (80, 1024, 5, 1), "tdnn1": (1024, 1024, 1, 1),
+              "res2_d2": (128, 128, 3, 2), "res2_d3": (128, 128, 3, 3),
+              "res2_d4": (128, 128, 3, 4), "mfa": (3072, 1536, 1, 1),
+              "asp": (4608, 128, 1, 1)}
+CARD_AFFINE_SHAPES = {"b8_t300": (8, 300, 0), "b3_t77": (3, 77, 0),
+                      "b5_t131_strided": (5, 131, 9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(CARD_AFFINE_SHAPES))
+@pytest.mark.parametrize("form", sorted(CARD_FORMS))
+def test_ecapa_kernel_matches_plain_on_card(form, shape):
+    """The kernel in ECAPA's forms (reflect padding, affine BN, 128-wide
+    tiles) against the float64 block on the card, at the bars of the CPU
+    case: the headline length, B T not a multiple of the 128-row tile, and
+    an input held in a longer row stride."""
+    _need_card()
+    x, g, args = _affine_case(CARD_FORMS[form], *CARD_AFFINE_SHAPES[shape],
+                              device="cuda")
+    w = TC.tdnn_conv
+    w.reset_counts()
+    out, dx, mask = _block_and_grad(x, g, args)
+    torch.cuda.synchronize()
+    assert (w.launches, w.plain_calls) == (2, 0)
+    _assert_affine_close_to_plain(x, g, args, out, dx, mask)
