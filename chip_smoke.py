@@ -16,8 +16,9 @@ Phases, one JSON line each:
               when torch sees no CUDA card.
   2. build    nvcc builds the port's kernel sources, csrc/chol.cu,
               csrc/gmm.cu, csrc/gmm_stats_fwd.cu, csrc/gmm_stats_bwd.cu,
-              csrc/adpcm.cu, csrc/tdnn_conv.cu and csrc/asp_pool.cu, one
-              process each, side by side, into csrc/_build/.
+              csrc/adpcm.cu, csrc/tdnn_conv.cu, csrc/asp_pool.cu and
+              csrc/mfcc.cu, one process each, side by side, into
+              csrc/_build/.
   3. launch   each of fused_loglike's two launches (the three-piece bf16
               split of aug(x), the six-product split GEMM; the projection's
               split between them is plain torch), of stats_fwd's three
@@ -57,9 +58,14 @@ Phases, one JSON line each:
               chained at 512 x 300, each direction's launch timed alone,
               through its wrapper, beside the present im2col + cuBLAS block
               (library) and fast_block_plain, against its bound (sums over
-              a PGD-10 call: bound 25.0 ms); then xv_small_reference: the
-              card's xv-PLDA scores against the CPU plain path on a model
-              from the same numpy seed.
+              a PGD-10 call: bound 25.0 ms); then mfcc: the fused MFCC
+              (csrc/mfcc.cu) at each cell's shape (xv 512, iv and ECAPA
+              256 waves of 3 s, with dither), features and input gradient
+              within 1.5 times the unfused fast chain's error against the
+              float32 chain, each direction timed beside its bound, the
+              plain mirror and the unfused chain (library); then
+              xv_small_reference: the card's xv-PLDA scores against the
+              CPU plain path on a model from the same numpy seed.
   6. slice    the main path at full width: iv-PLDA (C=2048, D=72, IV=600,
               R=200, weights from a numpy seed), 10 enrolled speakers, task
               CSI-E, 64 utterances of 3 s; make_decision, then PGD (10
@@ -90,9 +96,14 @@ Phases, one JSON line each:
               utterances of 3 s: make_decision, then PGD-100 (eps 0.002,
               step 0.0004, Entropy) with FastPath() (bf16 TDNN activations,
               bf16 DFT): tdnn_conv 10 an iteration (each block forward and
-              backward), 1000; every other count 0.
+              backward), 1000; mfcc_fwd and mfcc_bwd 1 an iteration, 100
+              each; every other count 0.  (The fused MFCC counts a call of
+              each direction on every fast slice: an iteration's forward
+              and input gradient, iv's top-K context's forward, the
+              forward-only NES and particle evaluations; the defended
+              models' frontend is the exact one.)
  13. slice_xv_fast_f32  the same with FastPath(tdnn_bf16_act=False),
-              PGD-10: every count 0.
+              PGD-10: mfcc_fwd, mfcc_bwd 10; every other count 0.
  14. slice_xv_exact  the same with FastPath(enabled=False), PGD-10.
  14b. ecapa  ECAPA-TDNN at the ecapa_pgd10_b256 cell's widths and shape
               (benchmark/configs/ecapa_tdnn.json: C = 1024, 256 waves of
@@ -325,8 +336,8 @@ Phases, one JSON line each:
               stats_fwd and cholesky_rt with their siren-shape case;
               cholesky_rt with its cli-shape case), with
               its launches on every slice, and the port's own kernels
-              adpcm, tdnn_conv (with its ECAPA-shape case) and asp_stats
-              (no Pallas counterpart).
+              adpcm, tdnn_conv (with its ECAPA-shape case), asp_stats and
+              mfcc (no Pallas counterpart).
 Then the card's name and power limit, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -1363,17 +1374,22 @@ def phase_slices(torch, wrappers, profile_dir):
     # one solve per exact evaluation (make_decision, the final one) and per
     # iteration; chol_solve's backward solves once more
     evals = 1 + iters + 1
+    # the fused MFCC: a forward and an input gradient an iteration, and the
+    # top-K context's forward (no dither) once a run where there is one
+    mfcc = {"mfcc_fwd": iters, "mfcc_bwd": iters}
+    mfcc_ctx = {"mfcc_fwd": iters + 1, "mfcc_bwd": iters}
     chol_only = {"cholesky_rt": evals}
     slices = [  # (name, FastPath, loglike_kernel, spd_solver, launches)
         ("slice", FastPath(enabled=False), False, "cholesky_rt", chol_only),
         ("slice_fast_kernels", FastPath(gmm_topk=0, stats_kernel=True), True,
          "cholesky_rt", {"cholesky_rt": evals, "stats_fwd": iters,
-                         "stats_bwd": iters, "fused_loglike": 2}),
-        ("slice_fast_default", FastPath(), False, "cholesky_rt", chol_only),
+                         "stats_bwd": iters, "fused_loglike": 2, **mfcc}),
+        ("slice_fast_default", FastPath(), False, "cholesky_rt",
+         {**chol_only, **mfcc_ctx}),
         ("slice_chol_dinv", FastPath(), False, "cholesky_rt_dinv",
-         {"cholesky_rt_dinv": evals}),
+         {"cholesky_rt_dinv": evals, **mfcc_ctx}),
         ("slice_chol_solve", FastPath(), False, "chol_solve",
-         {"chol_solve": evals + iters}),
+         {"chol_solve": evals + iters, **mfcc_ctx}),
     ]
     out, models = {}, {}
     for name, fast, kernel, solver, launches in slices:
@@ -1391,9 +1407,9 @@ def phase_xv_slices(torch, wrappers, profile_dir):
     """Full-width xv-PLDA (TDNN_SPEC widths, 30 ceps, a 512-dim x-vector,
     LDA to 150, weights from numpy seed 0), 10 speakers enrolled from waves,
     task CSI-E, 512 utterances of 3 s; make_decision, then PGD (eps 0.002,
-    step 0.0004, Entropy) on three fast-path configurations.  No hand
-    kernel lies on this path: every wrapper's launch count is 0.  Returns
-    {slice: launch counts}."""
+    step 0.0004, Entropy) on three fast-path configurations: the fast
+    ones run tdnn_conv (bf16 activations) and the fused MFCC, every other
+    wrapper's launch count is 0.  Returns {slice: launch counts}."""
     from speakerguard_tpu_torch.models.base import FastPath
     from speakerguard_tpu_torch.models.tdnn import TDNN_SPEC
     from speakerguard_tpu_torch.models.xv_plda import (XvPlda,
@@ -1424,6 +1440,8 @@ def phase_xv_slices(torch, wrappers, profile_dir):
         expected = {k: 0 for k in wrappers}
         if fast.enabled and fast.tdnn_bf16_act:
             expected["tdnn_conv"] = TDNN_LAUNCHES * iters
+        if fast.enabled:  # the fused MFCC a direction an iteration
+            expected.update(mfcc_fwd=iters, mfcc_bwd=iters)
         out[name] = run_slice(torch, name, model, x, wrappers, expected,
                               profile_dir, fields, batch, iters)
     return out
@@ -1662,9 +1680,9 @@ def phase_cw2_slices(torch, wrappers, profile_dir):
         ("slice_cw2_sv_fast", FastPath(gmm_topk=0, stats_kernel=True), True,
          IV_PLDA_MFCC, True,
          {"cholesky_rt": 2 + evals, "fused_loglike": 2, "stats_fwd": evals,
-          "stats_bwd": evals},
+          "stats_bwd": evals, "mfcc_fwd": evals, "mfcc_bwd": evals},
          {"cholesky_rt": 11, "fused_loglike": 1, "stats_fwd": 10,
-          "stats_bwd": 10}),
+          "stats_bwd": 10, "mfcc_fwd": 10, "mfcc_bwd": 10}),
     ]
     out = {}
     for name, fast, kernel, mfcc, cw2_fast, counts, cwinf_counts in slices:
@@ -1992,7 +2010,8 @@ def phase_fakebob_slices(torch, wrappers, profile_dir):
     def fast_counts(a):
         exact = 1 + a.last_guard_evals + 1
         return {"stats_fwd": a.last_executed_iters, "fused_loglike": exact,
-                "cholesky_rt": a.last_executed_iters + exact}
+                "cholesky_rt": a.last_executed_iters + exact,
+                "mfcc_fwd": a.last_executed_iters}
 
     launches, rec = run_fakebob_slice(
         torch, "slice_fakebob_osi_fast", model, x, labels, wrappers, "OSI",
@@ -2038,7 +2057,8 @@ def phase_fakebob_slices(torch, wrappers, profile_dir):
         dict(epsilon=0.002, max_iter=5, samples_per_draw=50,
              samples_per_draw_batch_size=17, max_lr=0.001, stop_early=False,
              fast=True),
-        lambda a: {"tdnn_conv": TDNN_FORWARD * 3 * a.last_executed_iters},
+        lambda a: {"tdnn_conv": TDNN_FORWARD * 3 * a.last_executed_iters,
+                   "mfcc_fwd": 3 * a.last_executed_iters},
         {"model": "xv_plda", "num_ceps": 30, "R": 150,
          "nes_chunks": [17, 17, 17]}, profile_dir)
     emit(rec)
@@ -2291,6 +2311,113 @@ def phase_tdnn_conv(torch):
     return rec
 
 
+# the fused MFCC at each cell's shapes: (config, batch) a PGD-10 call
+MFCC_CELLS = (("xv", 512), ("iv", 256), ("ecapa", 256))
+# the kernels against the bf16 mirror: (largest gap over the largest entry,
+# the gap's norm over the mirror's); tests/test_torch_mfcc_fast.py's
+# MIRROR_BARS, where the readings that set them are
+MFCC_MIRROR_BARS = {"features": (4e-3, 3e-5), "gradient": (4e-3, 5e-4)}
+
+
+def mfcc_config(name):
+    from speakerguard_tpu_torch.models.ecapa import ECAPA_MFCC
+    from speakerguard_tpu_torch.ops import kaldi_mfcc as KM
+    return {"xv": KM.XV_PLDA_MFCC, "iv": KM.IV_PLDA_MFCC,
+            "ecapa": ECAPA_MFCC}[name]
+
+
+def phase_mfcc(torch):
+    """csrc/mfcc.cu (``ops/mfcc_fast.py``) at each cell's shape (3 s
+    waves with dither, the xv, iv and ECAPA configurations): features and
+    input gradient through ``mfcc`` against the plain mirror with bf16
+    operands (``mfcc_fwd_plain``, ``mfcc_bwd_plain``), within
+    ``MFCC_MIRROR_BARS``, and against the float32 chain, within 1.5 times the
+    error of today's unfused fast chain (``mfcc_chain(fast_dft=True)``)
+    plus 1e-5 of the largest entry; then each direction's
+    CUDA-event ms (the forward's launch, the input gradient's two) beside
+    its bound (``benchmark/flops/mfcc.py``'s bytes at 3.35 TB/s), the plain
+    mirror's ms (``mfcc_fwd_plain`` + ``mfcc_bwd_plain``) and, as
+    library_ms, the unfused chain's forward and input gradient.  Returns
+    the records, ms summed over a PGD-10 call."""
+    from speakerguard_tpu_torch.ops import kaldi_mfcc as KM
+    from speakerguard_tpu_torch.ops import mfcc_fast as MF
+    out, bad = {}, []
+    for name, b in MFCC_CELLS:
+        cfg = mfcc_config(name)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        wav = (torch.rand(b, 48000, device="cuda", generator=gen) * 2
+               - 1) * (0.3 * 32768)
+        t = KM.num_frames(48000, cfg)
+        noise = torch.randn(b, t, 400, device="cuda", generator=gen)
+        cot = torch.randn(b, t, cfg.num_ceps, device="cuda", generator=gen)
+
+        def value_and_grad(fn):
+            x = wav.clone().requires_grad_(True)
+            feat = fn(x)
+            (g,) = torch.autograd.grad((feat * cot).sum(), x)
+            return feat.detach(), g
+
+        for w in (MF.mfcc_fwd, MF.mfcc_bwd):
+            w.reset_counts()
+        new = value_and_grad(lambda x: MF.mfcc(x, cfg, noise))
+        launched = [MF.mfcc_fwd.launches, MF.mfcc_bwd.launches,
+                    MF.mfcc_fwd.plain_calls + MF.mfcc_bwd.plain_calls]
+        f, m = MF.mfcc_fwd_plain(wav, noise, cfg)
+        mirror = (f, MF.mfcc_bwd_plain(wav, noise, cfg, m, cot))
+        old = value_and_grad(lambda x: KM.mfcc_chain(x, cfg, noise, True))
+        exact = value_and_grad(lambda x: KM.mfcc_chain(x, cfg, noise, False))
+        torch.cuda.synchronize()
+        rec = {"phase": "mfcc", "config": name, "shape": [b, 48000, t],
+               "num_mel_bins": cfg.num_mel_bins, "num_ceps": cfg.num_ceps,
+               "launches": launched}
+        ok = launched == [1, 1, 0]
+        for what, got, ref, prev, want in zip(("features", "gradient"), new,
+                                              mirror, old, exact):
+            gap = (float((got - ref).abs().max() / ref.abs().max()),
+                   float((got - ref).norm() / ref.norm()))
+            top = float(want.abs().max())
+            err = float((got - want).abs().max())
+            err_old = float((prev - want).abs().max())
+            rec[f"{what}_gap_mirror"] = gap
+            rec[f"{what}_err"] = err
+            rec[f"{what}_err_unfused"] = err_old
+            ok = (ok and all(g <= bar for g, bar in
+                             zip(gap, MFCC_MIRROR_BARS[what]))
+                  and err <= 1.5 * err_old + 1e-5 * top)
+        rec["ok"] = ok
+        feat, mel = MF.mfcc_fwd(wav, noise, cfg)
+        rec["fwd_ms"] = cuda_ms(lambda: MF.mfcc_fwd(wav, noise, cfg), 2, 20)
+        rec["bwd_ms"] = cuda_ms(lambda: MF.mfcc_bwd(wav, noise, cfg, mel,
+                                                    cot), 2, 20)
+        nbytes_f = 4 * (b * 48000 + b * t * 400 + b * t * cfg.num_ceps)
+        nbytes_b = 4 * (b * t * cfg.num_ceps + 2 * b * 48000 + b * t * 400)
+        rec["fwd_bound_ms"] = nbytes_f / HBM_BYTES_PER_S * 1e3
+        rec["bwd_bound_ms"] = nbytes_b / HBM_BYTES_PER_S * 1e3
+
+        def plain():
+            f, m = MF.mfcc_fwd_plain(wav, noise, cfg)
+            MF.mfcc_bwd_plain(wav, noise, cfg, m, cot)
+
+        rec["plain_ms"] = cuda_ms(plain, 1, 3)
+        rec["library_ms"] = cuda_ms(lambda: value_and_grad(
+            lambda x: KM.mfcc_chain(x, cfg, noise, True)), 1, 5)
+        call = {k: PGD_ITERS * v for k, v in (
+            ("ms", rec["fwd_ms"] + rec["bwd_ms"]),
+            ("bound_ms", rec["fwd_bound_ms"] + rec["bwd_bound_ms"]),
+            ("plain_ms", rec["plain_ms"]), ("library_ms", rec["library_ms"]))}
+        rec["per_call"] = {**call,
+                           "roofline_pct": 100 * call["bound_ms"] / call["ms"]}
+        emit(rec)
+        out[name] = rec
+        if not ok:
+            bad.append(rec)
+        del wav, noise, cot, new, mirror, f, m, old, exact, feat, mel
+        torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError(f"mfcc: {len(bad)} shapes off their bars: {bad}")
+    return out
+
+
 ECAPA_BATCH, ECAPA_SAMPLES = 256, 48000   # the ecapa_pgd10_b256 cell's calls
 ECAPA_LAUNCHES = 60       # tdnn_conv launches of an ECAPA PGD iteration
 ASP_LAUNCHES = 2          # ... asp_stats launches of one
@@ -2511,6 +2638,7 @@ def phase_ecapa_slice(torch, wrappers, profile_dir):
     expected = {k: 0 for k in wrappers}
     expected["tdnn_conv"] = ECAPA_LAUNCHES * PGD_ITERS
     expected["asp_stats"] = ASP_LAUNCHES * PGD_ITERS
+    expected.update(mfcc_fwd=PGD_ITERS, mfcc_bwd=PGD_ITERS)
     fields = {"model": "ecapa_tdnn", "channels": cfg["channels"],
               "mfa": cfg["mfa_channels"], "emb_dim": emb}
     return {"slice_ecapa": run_slice(torch, "slice_ecapa", model, x,
@@ -3495,7 +3623,8 @@ def phase_slice15(torch, wrappers):
                  abort_early=False, fast=True)
     out["slice_siren_xv"], rec = run_siren_slice(
         torch, "slice_siren_xv", base, x[:32], wrappers,
-        lambda a: {"tdnn_conv": TDNN_FORWARD * a.last_particle_evals},
+        lambda a: {"tdnn_conv": TDNN_FORWARD * a.last_particle_evals,
+                   "mfcc_fwd": a.last_particle_evals},
         xfields, siren)
     emit(rec)
     del base, xparams, enroll, x
@@ -3535,7 +3664,8 @@ def phase_slice15(torch, wrappers):
     def siren_counts(a):
         exact = a.last_guard_evals + 2  # make_decision, the re-evaluation
         return {"stats_fwd": a.last_particle_evals, "fused_loglike": exact,
-                "cholesky_rt": a.last_particle_evals + exact}
+                "cholesky_rt": a.last_particle_evals + exact,
+                "mfcc_fwd": a.last_particle_evals}
 
     out["slice_siren_iv"], rec = run_siren_slice(
         torch, "slice_siren_iv", model, x[:16], wrappers, siren_counts,
@@ -4440,7 +4570,8 @@ def phase_cli(torch, wrappers):
             torch, "cli_xv", wrappers, "xv_plda",
             ["-extractor", ckpt, "-plda", xv_files[0], "-mean", xv_files[1],
              "-transform", xv_files[2]], ["PGD"],
-            {"attack_main": {"tdnn_conv": TDNN_LAUNCHES * 10}}, root)
+            {"attack_main": {"tdnn_conv": TDNN_LAUNCHES * 10,
+                             "mfcc_fwd": 10, "mfcc_bwd": 10}}, root)
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
@@ -4460,7 +4591,9 @@ def phase_cli(torch, wrappers):
             [a for flag, p in zip(("-gmm", "-extractor", "-plda", "-mean",
                                    "-transform"), iv_files)
              for a in (flag, p)], ["PGD"],
-            {cli: {"cholesky_rt": n} for cli, n in evals.items()}, root)
+            {cli: {"cholesky_rt": n, **({"mfcc_fwd": 10, "mfcc_bwd": 10}
+                                        if cli == "attack_main" else {})}
+             for cli, n in evals.items()}, root)
         torch.cuda.empty_cache()
 
         params, state = init_audionet(np.random.default_rng(0), CLI_SPK,
@@ -4827,7 +4960,7 @@ def main(argv):
         import speakerguard_tpu_torch  # noqa: F401  (TF32 off)
         from speakerguard_tpu_torch.ops import _build, chol
         from speakerguard_tpu_torch.ops import (adpcm, gmm_loglike, gmm_stats,
-                                                tdnn_conv)
+                                                mfcc_fast, tdnn_conv)
     except ImportError as exc:
         print(f"chip_smoke: the port's package is missing beside this "
               f"script ({exc})", file=sys.stderr)
@@ -4851,7 +4984,7 @@ def main(argv):
 
     t0 = time.perf_counter()
     sources = ("chol", "gmm", "gmm_stats_fwd", "gmm_stats_bwd", "adpcm",
-               "tdnn_conv", "asp_pool")
+               "tdnn_conv", "asp_pool", "mfcc")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -4871,6 +5004,7 @@ def main(argv):
     phase_small_reference(torch)
     phase_xv_blocks(torch)
     tdnn_rec = phase_tdnn_conv(torch)
+    mfcc_recs = phase_mfcc(torch)
     phase_xv_small_reference(torch)
     wrappers = {"cholesky_rt": chol.cholesky_rt,
                 "cholesky_rt_dinv": chol.cholesky_rt_dinv,
@@ -4879,7 +5013,9 @@ def main(argv):
                 "stats_fwd": gmm_stats.stats_fwd,
                 "stats_bwd": gmm_stats.stats_bwd,
                 "adpcm": adpcm.adpcm,
-                "tdnn_conv": tdnn_conv.tdnn_conv}
+                "tdnn_conv": tdnn_conv.tdnn_conv,
+                "mfcc_fwd": mfcc_fast.mfcc_fwd,
+                "mfcc_bwd": mfcc_fast.mfcc_bwd}
     launches, models, x = phase_slices(torch, wrappers, profile_dir)
     if "--rounds" in argv:
         phase_rounds(torch, {n: models[n] for n in (
@@ -5041,6 +5177,23 @@ def main(argv):
             "fwd_ms", "bwd_ms", "fwd_plain_ms", "bwd_plain_ms",
             "fwd_bound_ms", "bwd_bound_ms")},
         "bound_by": "bytes", "library_ms": None})
+    # the fast path's fused MFCC: replaces no Pallas kernel (XLA's chain)
+    xv_mfcc = mfcc_recs["xv"]
+    kernels.append({
+        "name": "mfcc", "route": "cuda",
+        "source": "speakerguard_tpu_torch/csrc/mfcc.cu",
+        "replaces": "speakerguard_tpu/ops/kaldi_mfcc.py kaldi_mfcc's chain "
+                    "(XLA's ops; no Pallas kernel)",
+        "pallas_counterpart": None,
+        "launches": [launches["slice_xv"]["mfcc_fwd"],
+                     launches["slice_xv"]["mfcc_bwd"]],
+        "launches_by_path": {p: [v.get("mfcc_fwd", 0), v.get("mfcc_bwd", 0)]
+                             for p, v in launches.items()},
+        "per": "PGD-10 call (10 forwards and input gradients)",
+        **{k: xv_mfcc["per_call"][k] for k in (
+            "ms", "bound_ms", "plain_ms", "library_ms", "roofline_pct")},
+        "bound_by": "bytes",
+        "cells": {name: rec["per_call"] for name, rec in mfcc_recs.items()}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,7 +17,10 @@ sort-based scatter of the overlapping frames.
 ``fast_dft=True`` (attack-gradient graphs, ``FastPath.dft_bf16``) runs the
 two DFT matmuls with bf16 operands and float32 accumulation on the card,
 the JAX package's Precision.DEFAULT on the accelerator; on the CPU they
-stay float32, as JAX's DEFAULT is there.  The exact path is float32.
+stay float32, as JAX's DEFAULT is there.  The exact path is float32.  On
+a CUDA tensor the fast path's whole chain runs as the fused kernels of
+``ops/mfcc_fast.py``, which raise for a configuration they do not cover;
+``mfcc_chain`` is the chain as plain torch.
 
 Parameter set pinned to the reference configuration:
   sample_frequency=16000, frame_shift=10ms, frame_length=25ms,
@@ -323,15 +326,29 @@ def kaldi_mfcc(wav: torch.Tensor, cfg: MfccConfig = IV_PLDA_MFCC,
     domain.  Returns (B, T, num_ceps).  ``rng``: None (no dither), a
     torch.Generator or a draw function ``draw(shape)`` (``dither_noise``).
     ``fast_dft``: the DFT matmuls in the fast dtype (attack-gradient graphs
-    only)."""
+    only); on a CUDA tensor the chain's fused kernels."""
     if wav.ndim != 2:
         raise ValueError("expect (B, L)")
+    noise = None
+    if rng is not None and cfg.dither != 0.0:
+        shape = (wav.shape[0], num_frames(wav.shape[1], cfg), cfg.window_size)
+        noise = dither_noise(rng, shape, wav.device)
+    if fast_dft and wav.device.type == "cuda":
+        from speakerguard_tpu_torch.ops.mfcc_fast import mfcc
+        return mfcc(wav, cfg, noise)
+    return mfcc_chain(wav, cfg, noise, fast_dft)
+
+
+def mfcc_chain(wav: torch.Tensor, cfg: MfccConfig, noise=None,
+               fast_dft: bool = False) -> torch.Tensor:
+    """``kaldi_mfcc``'s chain in plain torch, the dither's standard normal
+    (B, T, window) draw given as ``noise`` (None: no dither)."""
     dev = wav.device
     consts = _consts(cfg, dev)
     frames = frame_signal(wav.to(torch.float32), cfg)  # (B, T, W)
 
-    if rng is not None and cfg.dither != 0.0:
-        frames = frames + cfg.dither * dither_noise(rng, frames.shape, dev)
+    if noise is not None:
+        frames = frames + cfg.dither * noise
 
     if cfg.remove_dc_offset:
         frames = frames - torch.mean(frames, dim=-1, keepdim=True)

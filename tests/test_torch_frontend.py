@@ -19,6 +19,8 @@ from speakerguard_tpu_torch.ops.delta import add_delta
 from speakerguard_tpu_torch.ops.kaldi_mfcc import (IV_PLDA_MFCC, XV_PLDA_MFCC,
                                                    kaldi_mfcc)
 
+from test_torch_mfcc_fast import CONFIGS, _case, _mirror, _rel, _value_and_grad
+
 
 def _golden():
     path = os.path.join(os.path.dirname(__file__), "golden",
@@ -156,3 +158,24 @@ def test_framing_fold_vjp_matches_gather_autograd_and_jax(length):
                                rtol=0, atol=1e-6 * scale)
     np.testing.assert_allclose(x.grad.numpy(), want, rtol=0,
                                atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("length", [8000, 6401])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_fused_mfcc_mirror_matches_jax(name, length):
+    """The fused kernel's plain mirror (ops/mfcc_fast.py) with float32 DFT
+    operands against the JAX frontend, value and input gradient, in the
+    x-vector, i-vector and ECAPA configurations, no dither: the same
+    mathematics with the sums in another order (its dropped Nyquist bin has
+    zero mel weight), within 1e-5 of the largest entry."""
+    cfg = CONFIGS[name]
+    jcfg = jax_mfcc.MfccConfig(num_mel_bins=cfg.num_mel_bins,
+                               num_ceps=cfg.num_ceps)
+    wav, _, cot = _case(2, length, cfg, False, seed=7)
+    w, c = wav.numpy(), cot.numpy()
+    want = np.asarray(jax_mfcc.kaldi_mfcc(jnp.asarray(w), jcfg))
+    want_g = np.asarray(jax.grad(lambda x: jnp.sum(
+        jax_mfcc.kaldi_mfcc(x, jcfg) * c))(jnp.asarray(w)))
+    got, g = _value_and_grad(_mirror(cfg, None, torch.float32), wav, cot)
+    assert _rel(got, torch.tensor(want)) <= 1e-5
+    assert _rel(g, torch.tensor(want_g)) <= 1e-5
