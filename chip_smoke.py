@@ -2238,7 +2238,6 @@ def phase_tdnn_conv(torch):
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(b, t, 30, device="cuda", generator=gen).to(
         torch.bfloat16)
-    lib = TC._lib()
     w = TC.tdnn_conv
     tot = {"ms": 0.0, "bound_ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
            "library_ms": 0.0}
@@ -2271,7 +2270,7 @@ def phase_tdnn_conv(torch):
         bop = TC.bwd_operands(g, saved[0], *saved[1:], dil)
 
         def launch(entry, op):
-            return lambda: TC._call(getattr(lib, entry), op, x.device)
+            return lambda: TC.LIB.launch(entry, x.device, *op.values())
 
         rec = {"phase": "tdnn_conv", "layer": i + 1, "shape": [b, t, cin],
                "row_stride": TC.rows_layout(x)[0],
@@ -2478,7 +2477,7 @@ def phase_ecapa_kernels(torch):
     from speakerguard_tpu_torch.ops import tdnn_conv as TC
     cfg = ecapa_config()
     b, (t, _, _) = ECAPA_BATCH, frames(cfg, ECAPA_SAMPLES)
-    lib, w = TC._lib(), TC.tdnn_conv
+    w = TC.tdnn_conv
     gen = torch.Generator(device="cuda").manual_seed(24)
 
     def uni(shape, lo, hi):
@@ -2533,7 +2532,7 @@ def phase_ecapa_kernels(torch):
                  lambda: TC.block_bwd_plain(g, l_mask, w16, var, dil,
                                             gamma))):
             rec[f"{d}_ms"] = cuda_ms(
-                lambda: TC._call(getattr(lib, entry), op, x.device), 2, 10)
+                lambda: TC.LIB.launch(entry, x.device, *op.values()), 2, 10)
             rec[f"{d}_wrapper_ms"] = cuda_ms(wrapped, 2, 10)
             rec[f"{d}_library_ms"] = cuda_ms(library, 1, 3)
             rec[f"{d}_bound_ms"] = bound_ms(

@@ -76,7 +76,7 @@ class FastPath:
     counts or VMEM tiles, and the port's exact path is float32 with TF32
     off.  As in the JAX package, where the fast path computes in bf16 on the
     accelerator it computes in float32 on the bf16-rounded weight copies on
-    the CPU (``models.gmm.fast_dot_dtype``).
+    the CPU (``ops.matmul.fast_dot_dtype``).
     """
 
     enabled: bool = True

@@ -19,7 +19,7 @@ Two paths, as in the JAX package:
     the (B, T, C) loglike under an analytic VJP (``_LoglikeFused``), whose
     forward runs the fused kernel ``ops/gmm_loglike.py`` when asked;
   * fast (attack gradients only, ``FastPath``): the bf16 copy of quad_proj,
-    bf16 operands with f32 accumulation on the card (``fast_dot_dtype``),
+    bf16 operands with f32 accumulation on the card (``ops/matmul.py``),
     the softmax + stats block under one hand-written VJP with bf16 saved
     posteriors (``_SoftmaxStatsFast``), an optional frame-chunked variant,
     the fused stats kernels ``ops/gmm_stats.py``, and a frozen batch-shared
@@ -36,6 +36,7 @@ from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.models.base import FastPath
 from speakerguard_tpu_torch.ops.gmm_loglike import fused_loglike
 from speakerguard_tpu_torch.ops.gmm_stats import fused_stats
+from speakerguard_tpu_torch.ops.matmul import dot_f32, fast_dot_dtype
 
 
 class FullGMMParams(NamedTuple):
@@ -107,64 +108,6 @@ def fast_proj(params: FullGMMParams) -> torch.Tensor:
     """bf16 quad_proj: the stored copy, else the same rounding cast here."""
     qp = params.quad_proj_bf16
     return qp if qp is not None else params.quad_proj.to(torch.bfloat16)
-
-
-# ---------------------------------------------------------------------------
-# precision of the fast path
-# ---------------------------------------------------------------------------
-
-def fast_dot_dtype(device: torch.device) -> torch.dtype:
-    """bf16 on the card; float32 on the CPU.  The JAX package has bf16 on
-    the TPU and float32 elsewhere (gmm.py fast_dot_dtype): off the
-    accelerator the operands are still the bf16-ROUNDED weight copies, so
-    the CPU tests see the same weight rounding as JAX's CPU run."""
-    return torch.bfloat16 if device.type == "cuda" else torch.float32
-
-
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if b.ndim == 2:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                       out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return torch.bmm(a, b, out_dtype=torch.float32)
-
-
-class _DotF32(torch.autograd.Function):
-    """The bf16 product of ``dot_f32`` under autograd (the out_dtype GEMM
-    has no derivative of its own): each input's cotangent is the same kind
-    of product, the f32 cotangent rounded to bf16, rounded to the input's
-    dtype as JAX's transpose of a preferred_element_type dot does."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return _mm_f32(a, b)
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = g.to(a.dtype)
-        ga = gb = None
-        if ctx.needs_input_grad[0]:
-            ga = _mm_f32(g, b.mT).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            if b.ndim == 2:
-                gb = _mm_f32(a.reshape(-1, a.shape[-1]).T,
-                             g.reshape(-1, g.shape[-1]))
-            else:
-                gb = _mm_f32(a.mT, g)
-            gb = gb.to(b.dtype)
-        return ga, gb
-
-
-def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with float32 accumulation and a float32 result (JAX's
-    ``preferred_element_type=float32``).  bf16 operands go to a bf16 GEMM
-    with an f32 output (``out_dtype``); a (..., M, K) @ (K, N) product is
-    flattened to one GEMM, (B, M, K) @ (B, K, N) is a batched one."""
-    if a.dtype != torch.bfloat16:
-        return a @ b
-    return _DotF32.apply(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -32,9 +32,9 @@ import torch
 
 from speakerguard_tpu_torch import resolve_device
 from speakerguard_tpu_torch.models.base import FastPath
-from speakerguard_tpu_torch.models.gmm import dot_f32, fast_dot_dtype
 from speakerguard_tpu_torch.ops.chol import (DINV_M, chol_solve, cholesky_rt,
                                              cholesky_rt_dinv)
+from speakerguard_tpu_torch.ops.matmul import dot_f32, fast_dot_dtype
 from speakerguard_tpu_torch.ops.trsv import triangular_solve_vec
 
 

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from speakerguard_tpu_torch import resolve_device
-from speakerguard_tpu_torch.models.gmm import fast_dot_dtype
+from speakerguard_tpu_torch.ops.matmul import fast_dot_dtype
 from speakerguard_tpu_torch.ops.tdnn_conv import (
     BN_EPS, _conv1d, _conv1d_input_grad, affine_bn, empty_rows_like,
     same_pad, tdnn_conv)

@@ -28,17 +28,15 @@ kernel writes each add with ``__fadd_rn`` so that nvcc cannot contract it
 into a fused multiply-add.
 """
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
-from speakerguard_tpu_torch.ops._build import KernelWrapper, check_rc
+from speakerguard_tpu_torch.ops._build import (INT, PTR, KernelWrapper,
+                                               Library)
 from speakerguard_tpu_torch.utils.ranges import ABS_MAX
 
 # IMA ADPCM step-size table (DVI ADPCM specification); csrc/adpcm.cu holds
-# the same table and the index adjustments, and _lib() checks its length
+# the same table and the index adjustments, and LIB checks its length
 IMA_STEPS = np.array([
     7, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 21, 23, 25, 28, 31, 34, 37,
     41, 45, 50, 55, 60, 66, 73, 80, 88, 97, 107, 118, 130, 143, 157, 173,
@@ -116,31 +114,15 @@ def adpcm_scaled_plain(wav: torch.Tensor, bits: int = 4) -> torch.Tensor:
     return adpcm_plain(x16, bits) / ABS_MAX * restore
 
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# The argument types of csrc/adpcm.cu's C entry points, in order (a CPU test
-# holds them to the source's extern "C" declarations); each returns an int.
+# The argument types of csrc/adpcm.cu's C entry points, in order.
 ARGTYPES = {
     # x16, out, batch, length, bits, stream
-    "sg_adpcm": [_PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "sg_adpcm": [PTR, PTR, INT, INT, INT, PTR],
     # wav, out, wav_min, wav_max, batch, length, bits, stream
-    "sg_adpcm_scaled": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "sg_adpcm_scaled": [PTR, PTR, PTR, PTR, INT, INT, INT, PTR],
     "sg_adpcm_n_steps": [],
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The C entry points of csrc/adpcm.cu, built at first use."""
-    from speakerguard_tpu_torch.ops._build import load_library
-    lib = load_library("adpcm")
-    for name, args in ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    if lib.sg_adpcm_n_steps() != len(IMA_STEPS):
-        raise RuntimeError(f"csrc/adpcm.cu has {lib.sg_adpcm_n_steps()} "
-                           f"steps, ops/adpcm.py {len(IMA_STEPS)}")
-    return lib
+LIB = Library("adpcm", ARGTYPES, {"sg_adpcm_n_steps": len(IMA_STEPS)})
 
 
 class _Adpcm(KernelWrapper):
@@ -148,6 +130,7 @@ class _Adpcm(KernelWrapper):
     counting their calls."""
 
     name = "adpcm"
+    lib = LIB
 
     def __call__(self, x16: torch.Tensor, bits: int = 4) -> torch.Tensor:
         _check(x16, bits)
@@ -155,12 +138,7 @@ class _Adpcm(KernelWrapper):
             return adpcm_plain(x16, bits)
         x16 = x16.contiguous()
         out = torch.empty_like(x16)
-        with torch.cuda.device(x16.device):
-            rc = _lib().sg_adpcm(x16.data_ptr(), out.data_ptr(),
-                                 *x16.shape, int(bits),
-                                 torch.cuda.current_stream().cuda_stream)
-        check_rc(rc, self.name)
-        self.launches += 1
+        self._launch("sg_adpcm", x16.device, x16, out, *x16.shape, int(bits))
         return out
 
     def scaled(self, wav: torch.Tensor, bits: int = 4) -> torch.Tensor:
@@ -173,13 +151,8 @@ class _Adpcm(KernelWrapper):
         wav = wav.contiguous()
         lo, hi = torch.aminmax(wav)
         out = torch.empty_like(wav)
-        with torch.cuda.device(wav.device):
-            rc = _lib().sg_adpcm_scaled(
-                wav.data_ptr(), out.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                *wav.shape, int(bits),
-                torch.cuda.current_stream().cuda_stream)
-        check_rc(rc, self.name)
-        self.launches += 1
+        self._launch("sg_adpcm_scaled", wav.device, wav, out, lo, hi,
+                     *wav.shape, int(bits))
         return out
 
 

@@ -22,13 +22,10 @@ mu)^2:
 The exact path differentiates ``stats_fwd_plain`` with autograd.
 """
 
-import ctypes
-import functools
-
 import torch
 
-from speakerguard_tpu_torch.ops._build import (KernelWrapper, check_rc,
-                                               launch_on)
+from speakerguard_tpu_torch.ops._build import (FLT, INT, PTR, KernelWrapper,
+                                               Library)
 
 
 def stats_fwd_plain(logits, m, eps):
@@ -59,32 +56,17 @@ def stats_bwd_plain(logits, m, eps, mu, sigma, lmax, lsum, var, gmu,
     return dl, dm.to(m.dtype)
 
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# The argument types of csrc/asp_pool.cu's C entry points, in order (a CPU
-# test holds them to the source's extern "C" declarations); each returns an
-# int.
+# The argument types of csrc/asp_pool.cu's C entry points, in order.
 ARGTYPES = {
     # logits, m, b, t, c, eps, mu, sigma, lmax, lsum, var, stream
-    "sg_asp_stats_fwd": [_PTR, _PTR, _INT, _INT, _INT, ctypes.c_float,
-                         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
+    "sg_asp_stats_fwd": [PTR, PTR, INT, INT, INT, FLT, PTR, PTR, PTR, PTR,
+                         PTR, PTR],
     # logits, m, b, t, c, eps, mu, sigma, lmax, lsum, var, gmu, gsigma,
     # dlogits, dm, stream
-    "sg_asp_stats_bwd": [_PTR, _PTR, _INT, _INT, _INT, ctypes.c_float,
-                         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                         _PTR, _PTR],
+    "sg_asp_stats_bwd": [PTR, PTR, INT, INT, INT, FLT, PTR, PTR, PTR, PTR,
+                         PTR, PTR, PTR, PTR, PTR, PTR],
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The C entry points of csrc/asp_pool.cu, built at first use."""
-    from speakerguard_tpu_torch.ops._build import load_library
-    lib = load_library("asp_pool")
-    for name, args in ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    return lib
+LIB = Library("asp_pool", ARGTYPES)
 
 
 def _check(logits, m):
@@ -104,6 +86,7 @@ class _AspStats(KernelWrapper):
     directions' launches."""
 
     name = "asp_stats"
+    lib = LIB
 
     def forward(self, logits, m, eps):
         _check(logits, m)
@@ -132,12 +115,6 @@ class _AspStats(KernelWrapper):
                      mu, sigma, lmax, lsum, var, gmu.contiguous(),
                      gsigma.contiguous(), dl, dm)
         return dl, dm
-
-    def _launch(self, entry: str, device, *args):
-        check_rc(launch_on(device, getattr(_lib(), entry), *(
-            a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args)), self.name)
-        self.launches += 1
 
 
 asp_stats = _AspStats()

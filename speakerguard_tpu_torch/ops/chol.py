@@ -32,17 +32,15 @@ rebuilds A from R with the same panel grouping and the same bf16 rounding,
 so its error is f32 round-off whatever R's own rounding decisions were.
 """
 
-import ctypes
-import functools
-
 import torch
 
-from speakerguard_tpu_torch.ops._build import KernelWrapper, check_rc
+from speakerguard_tpu_torch.ops._build import (INT, PTR, KernelWrapper,
+                                               Library)
 
-NB = 32      # panel rows; the kernel reports its own and _lib() checks it
+NB = 32      # panel rows; the kernel reports its own and LIB checks it
 DINV_M = 128  # edge of the diagonal blocks that cholesky_rt_dinv inverts
 # the largest N of the kernels: 128 LD + 4480 bytes of shared memory, LD = N
-# rounded up to 4, within 232,448 (csrc/chol.cu; _lib() checks it)
+# rounded up to 4, within 232,448 (csrc/chol.cu; LIB checks it)
 MAX_N = 1780
 
 
@@ -178,39 +176,20 @@ def blocked_residual(a: torch.Tensor, r: torch.Tensor,
     return float(torch.triu(rebuilt - a64).abs().max() / a64.abs().max())
 
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# The argument types of csrc/chol.cu's C entry points, in order (a CPU test
-# holds them to the source's extern "C" declarations); each returns an int.
+# The argument types of csrc/chol.cu's C entry points, in order.
 ARGTYPES = {
     # a, a_is_bf16, out, batch, n, bf16_updates, stream
-    "sg_cholesky_rt": [_PTR, _INT, _PTR, _INT, _INT, _INT, _PTR],
+    "sg_cholesky_rt": [PTR, INT, PTR, INT, INT, INT, PTR],
     # a, a_is_bf16, out, dinv_t, batch, n, bf16_updates, stream
-    "sg_cholesky_rt_dinv": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "sg_cholesky_rt_dinv": [PTR, INT, PTR, PTR, INT, INT, INT, PTR],
     # a, v, out, y, x, batch, n, stream
-    "sg_chol_solve": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR],
+    "sg_chol_solve": [PTR, PTR, PTR, PTR, PTR, INT, INT, PTR],
     "sg_cholesky_rt_nb": [],
     "sg_cholesky_rt_max_n": [],
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The C entry points of csrc/chol.cu, built at first use."""
-    from speakerguard_tpu_torch.ops._build import load_library
-    lib = load_library("chol")
-    for name, args in ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    if lib.sg_cholesky_rt_nb() != NB:
-        # the plain versions and blocked_residual group the updates by NB
-        raise RuntimeError(f"csrc/chol.cu panels {lib.sg_cholesky_rt_nb()} "
-                           f"rows, ops/chol.py NB = {NB}")
-    if lib.sg_cholesky_rt_max_n() != MAX_N:
-        raise RuntimeError(f"csrc/chol.cu takes N <= "
-                           f"{lib.sg_cholesky_rt_max_n()}, ops/chol.py "
-                           f"MAX_N = {MAX_N}")
-    return lib
+# the plain versions and blocked_residual group the updates by NB
+LIB = Library("chol", ARGTYPES, {"sg_cholesky_rt_nb": NB,
+                                 "sg_cholesky_rt_max_n": MAX_N})
 
 
 def check_kernel_n(n: int):
@@ -222,17 +201,11 @@ def check_kernel_n(n: int):
                          f"diagonal block in 227 KB of shared memory)")
 
 
-def _launch(fn, t: torch.Tensor, *args) -> int:
-    """Call a C entry point with ``args`` and the current stream of
-    ``t``'s device, that device current."""
-    with torch.cuda.device(t.device):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-
-
 class _CholeskyRT(KernelWrapper):
     """``cholesky_rt(a, bf16_updates=False) -> R``, counting its calls."""
 
     name = "cholesky_rt"
+    lib = LIB
 
     def __call__(self, a: torch.Tensor,
                  bf16_updates: bool = False) -> torch.Tensor:
@@ -243,11 +216,9 @@ class _CholeskyRT(KernelWrapper):
         a = a.contiguous()
         b, n, _ = a.shape
         out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
-        rc = _launch(_lib().sg_cholesky_rt, a, a.data_ptr(),
-                     int(a.dtype == torch.bfloat16), out.data_ptr(), b, n,
+        self._launch("sg_cholesky_rt", a.device, a,
+                     int(a.dtype == torch.bfloat16), out, b, n,
                      int(bf16_updates))
-        check_rc(rc, self.name)
-        self.launches += 1
         return out
 
 
@@ -257,6 +228,7 @@ class _CholeskyRTDinv(KernelWrapper):
     float32, K = ceil(N / 128); counting its calls."""
 
     name = "cholesky_rt_dinv"
+    lib = LIB
 
     def __call__(self, a: torch.Tensor, bf16_updates: bool = False):
         _check(a)
@@ -269,11 +241,9 @@ class _CholeskyRTDinv(KernelWrapper):
         out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
         dinv_t = torch.empty((b, k, DINV_M, DINV_M), dtype=torch.float32,
                              device=a.device)
-        rc = _launch(_lib().sg_cholesky_rt_dinv, a, a.data_ptr(),
-                     int(a.dtype == torch.bfloat16), out.data_ptr(),
-                     dinv_t.data_ptr(), b, n, int(bf16_updates))
-        check_rc(rc, self.name)
-        self.launches += 1
+        self._launch("sg_cholesky_rt_dinv", a.device, a,
+                     int(a.dtype == torch.bfloat16), out, dinv_t, b, n,
+                     int(bf16_updates))
         return out, dinv_t
 
 
@@ -282,6 +252,7 @@ class _CholSolve(KernelWrapper):
     counting its calls."""
 
     name = "chol_solve"
+    lib = LIB
 
     def __call__(self, a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         _check_solve(a, v)
@@ -292,10 +263,7 @@ class _CholSolve(KernelWrapper):
         b, n, _ = a.shape
         out = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
         y, x = torch.empty_like(v), torch.empty_like(v)
-        rc = _launch(_lib().sg_chol_solve, a, a.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), y.data_ptr(), x.data_ptr(), b, n)
-        check_rc(rc, self.name)
-        self.launches += 1
+        self._launch("sg_chol_solve", a.device, a, v, out, y, x, b, n)
         return x
 
 

@@ -22,18 +22,21 @@ each with a plain version that the card's checks compare it with:
   3. ``loglike_split_gemm``: the six products on the TMA + wgmma GEMM,
      smallest first, plus gconsts (``loglike_split_plain``; launch 2).
 
-The launch helpers take CUDA tensors only and raise on anything else.
+Like the wrapper, each launch helper launches its kernel on CUDA tensors
+and runs its plain version on CPU tensors, its operand checks first.  A
+helper calls its entry point through ``launch``, the library's by default;
+the wrapper passes its own, and its last launch (``_launch``) counts the
+call.
 """
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from speakerguard_tpu_torch.ops._build import (KernelWrapper, check_rc,
-                                               load_library)
+from speakerguard_tpu_torch.ops._build import (INT, PTR, KernelWrapper,
+                                               Library, on_card)
 
 
 def aug_dim(d: int) -> int:
@@ -121,33 +124,25 @@ def loglike_split_plain(aug_s: torch.Tensor, proj_s: torch.Tensor,
     return out + gconsts
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """csrc/gmm.cu, built at first use, with its two C entry points (one
-    per launch) declared."""
-    lib = load_library("gmm")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sg_loglike_aug_split.argtypes = [p, p, p, i, i, i, p]
-    lib.sg_loglike_split_gemm.argtypes = [p, p, p, p, i, i, i, p]
-    for fn in (lib.sg_loglike_aug_split, lib.sg_loglike_split_gemm):
-        fn.restype = ctypes.c_int
-    return lib
+# The argument types of csrc/gmm.cu's C entry points (one a launch), in
+# order.
+ARGTYPES = {
+    # x, pairs, aug, rows, d, f_pad, stream
+    "sg_loglike_aug_split": [PTR, PTR, PTR, INT, INT, INT, PTR],
+    # aug, proj, gconsts, out, rows, c, f_pad, stream
+    "sg_loglike_split_gemm": [PTR, PTR, PTR, PTR, INT, INT, INT, PTR],
+}
+LIB = Library("gmm", ARGTYPES)
 
 
-def _require_cuda(what: str, *tensors: torch.Tensor):
-    if not all(t.device.type == "cuda" for t in tensors):
-        raise ValueError(f"{what} launches a CUDA kernel: its operands must "
-                         f"lie on a CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-
-
-def aug_split(x: torch.Tensor) -> torch.Tensor:
+def aug_split(x: torch.Tensor, launch=LIB.launch) -> torch.Tensor:
     """Launch 1 of ``fused_loglike``: ``augment_split_plain``'s function
-    for x (..., D) float32 on the card."""
+    for x (..., D) float32."""
     if x.dtype != torch.float32 or x.ndim < 1 or x.numel() == 0:
         raise ValueError(f"aug_split: expected a non-empty float32 x (..., "
                          f"D), got {tuple(x.shape)} {x.dtype}")
-    _require_cuda("aug_split", x)
+    if not on_card(x, "aug_split"):
+        return augment_split_plain(x)
     d = x.shape[-1]
     xc = x.contiguous()
     rows = xc.numel() // d
@@ -155,18 +150,14 @@ def aug_split(x: torch.Tensor) -> torch.Tensor:
     f_pad = padded_k(aug_dim(d))
     aug_s = torch.empty((rows, 3 * f_pad), dtype=torch.bfloat16,
                         device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _library().sg_loglike_aug_split(
-            xc.data_ptr(), pairs.data_ptr(), aug_s.data_ptr(), rows, d,
-            f_pad, torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "fused_loglike (aug split)")
+    launch("sg_loglike_aug_split", x.device, xc, pairs, aug_s, rows, d, f_pad)
     return aug_s
 
 
 def loglike_split_gemm(aug_s: torch.Tensor, proj_s: torch.Tensor,
-                       gconsts: torch.Tensor) -> torch.Tensor:
-    """Launch 2 of ``fused_loglike``: ``loglike_split_plain``'s function
-    on the card."""
+                       gconsts: torch.Tensor,
+                       launch=LIB.launch) -> torch.Tensor:
+    """Launch 2 of ``fused_loglike``: ``loglike_split_plain``'s function."""
     if (aug_s.ndim != 2 or proj_s.ndim != 2
             or aug_s.shape[1] != proj_s.shape[1]
             or aug_s.shape[1] % (3 * K_TILE)
@@ -174,23 +165,21 @@ def loglike_split_gemm(aug_s: torch.Tensor, proj_s: torch.Tensor,
             or aug_s.dtype != torch.bfloat16
             or proj_s.dtype != torch.bfloat16
             or gconsts.dtype != torch.float32
-            or not (aug_s.is_contiguous() and proj_s.is_contiguous())):
+            or not (aug_s.is_contiguous() and proj_s.is_contiguous())
+            or not aug_s.device == proj_s.device == gconsts.device):
         raise ValueError(f"loglike_split_gemm: augS {tuple(aug_s.shape)} "
                          f"{aug_s.dtype}, projS {tuple(proj_s.shape)} "
                          f"{proj_s.dtype}, gconsts {tuple(gconsts.shape)} "
                          f"{gconsts.dtype} (contiguous bf16 (N, 3 F_pad) "
                          f"and (C, 3 F_pad), F_pad a multiple of {K_TILE}; "
-                         f"float32 (C,))")
-    _require_cuda("loglike_split_gemm", aug_s, proj_s, gconsts)
+                         f"float32 (C,); on one device)")
+    if not on_card(aug_s, "loglike_split_gemm"):
+        return loglike_split_plain(aug_s, proj_s, gconsts)
     rows, c = aug_s.shape[0], proj_s.shape[0]
     gc = gconsts.contiguous()
     out = torch.empty((rows, c), dtype=torch.float32, device=aug_s.device)
-    with torch.cuda.device(aug_s.device):
-        rc = _library().sg_loglike_split_gemm(
-            aug_s.data_ptr(), proj_s.data_ptr(), gc.data_ptr(),
-            out.data_ptr(), rows, c, aug_s.shape[1] // 3,
-            torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "fused_loglike (split GEMM)")
+    launch("sg_loglike_split_gemm", aug_s.device, aug_s, proj_s, gc, out,
+           rows, c, aug_s.shape[1] // 3)
     return out
 
 
@@ -219,15 +208,16 @@ class _FusedLoglike(KernelWrapper):
     float32, quad_proj (D + D(D+1)/2, C) float32, gconsts (C,)."""
 
     name = "fused_loglike"
+    lib = LIB
 
     def __call__(self, x: torch.Tensor, quad_proj: torch.Tensor,
                  gconsts: torch.Tensor) -> torch.Tensor:
         check_operands(x, quad_proj, gconsts, torch.float32)
         if not self.route(x):
             return fused_loglike_plain(x, quad_proj, gconsts)
-        out = loglike_split_gemm(aug_split(x), proj_split_kmajor(quad_proj),
-                                 gconsts)
-        self.launches += 1
+        out = loglike_split_gemm(aug_split(x, self.lib.launch),
+                                 proj_split_kmajor(quad_proj), gconsts,
+                                 self._launch)
         return out.reshape(*x.shape[:-1], quad_proj.shape[1])
 
 

@@ -42,17 +42,17 @@ with its plain version too:
   2. ``daug_gemm``: daug = bf16(dl) . proj16^T in f32 on TMA + wgmma;
   3. ``chain_sum``: dx = daug[:, :D] + chain(daug[:, D:], x) + direct.
 
-On CPU tensors each wrapper and launch helper runs its plain version.
+On CPU tensors each wrapper and launch helper runs its plain version.  A
+helper calls its entry point through ``launch``, its library's by default;
+a wrapper passes its own, and the call's last launch (``_launch``) counts
+the call.
 """
-
-import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
-from speakerguard_tpu_torch.ops._build import (KernelWrapper, check_rc,
-                                               load_library)
+from speakerguard_tpu_torch.ops._build import (INT, PTR, KernelWrapper,
+                                               Library, on_card)
 from speakerguard_tpu_torch.ops.gmm_loglike import (K_TILE, check_operands,
                                                     packed_indices,
                                                     padded_k, pair_table)
@@ -214,33 +214,33 @@ def normalise_stats_plain(loglike: torch.Tensor, part: torch.Tensor,
     return posts.sum(dim=-2), first, posts16
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_library() -> ctypes.CDLL:
-    """csrc/gmm_stats_fwd.cu, built at first use, with its three C entry
-    points (one per launch) declared."""
-    lib = load_library("gmm_stats_fwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sg_stats_fwd_aug16.argtypes = [p, p, p, i, i, i, p]
-    lib.sg_stats_fwd_loglike.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.sg_stats_fwd_normalise.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
-                                           p]
-    for fn in (lib.sg_stats_fwd_aug16, lib.sg_stats_fwd_loglike,
-               lib.sg_stats_fwd_normalise):
-        fn.restype = ctypes.c_int
-    return lib
+# The argument types of the C entry points (one a launch) of
+# csrc/gmm_stats_fwd.cu and csrc/gmm_stats_bwd.cu, in order.
+FWD_ARGTYPES = {
+    # x, pairs, aug16, rows, d, f_pad, stream
+    "sg_stats_fwd_aug16": [PTR, PTR, PTR, INT, INT, INT, PTR],
+    # aug16, projk, gconsts, loglike, part, rows, c, f_pad, stream
+    "sg_stats_fwd_loglike": [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, PTR],
+    # loglike, ld, part, x, zeroth, first, posts16, b, t, d, c, stream
+    "sg_stats_fwd_normalise": [PTR, INT, PTR, PTR, PTR, PTR, PTR, INT, INT,
+                               INT, INT, PTR],
+}
+BWD_ARGTYPES = {
+    # x, posts16, dz, df16, dl16, ldc, direct, b, t, d, c, stream
+    "sg_stats_bwd_dl": [PTR, PTR, PTR, PTR, PTR, INT, PTR, INT, INT, INT,
+                        INT, PTR],
+    # dl16, ldc, proj, ldp, daug, ldf, rows, c, f, stream
+    "sg_stats_bwd_daug": [PTR, INT, PTR, INT, PTR, INT, INT, INT, INT, PTR],
+    # daug, ldf, x, direct, dx, rows, d, stream
+    "sg_stats_bwd_chain": [PTR, INT, PTR, PTR, PTR, INT, INT, PTR],
+}
+FWD_LIB = Library("gmm_stats_fwd", FWD_ARGTYPES)
+BWD_LIB = Library("gmm_stats_bwd", BWD_ARGTYPES)
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch), False on the CPU (plain version);
-    raises on any other device."""
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the GMM stats run on cuda or cpu, not {t.device}")
-    return t.device.type == "cuda"
-
-
-def augment16_padded(x: torch.Tensor) -> torch.Tensor:
+def augment16_padded(x: torch.Tensor, launch=FWD_LIB.launch) -> torch.Tensor:
     """Launch 1 of ``stats_fwd``: ``augment16_padded_plain``'s function."""
-    if not _on_card(x):
+    if not on_card(x, "augment16_padded"):
         return augment16_padded_plain(x)
     d = x.shape[-1]
     xc = x.contiguous()
@@ -248,20 +248,17 @@ def augment16_padded(x: torch.Tensor) -> torch.Tensor:
     pairs = pair_table(d, x.device)
     aug16 = torch.empty((rows, padded_k(d + d * (d + 1) // 2)),
                         dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _fwd_library().sg_stats_fwd_aug16(
-            xc.data_ptr(), pairs.data_ptr(), aug16.data_ptr(), rows, d,
-            aug16.shape[1], torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "stats_fwd (aug16)")
+    launch("sg_stats_fwd_aug16", x.device, xc, pairs, aug16, rows, d,
+           aug16.shape[1])
     return aug16
 
 
 def loglike_partials(aug16: torch.Tensor, projk: torch.Tensor,
-                     gconsts: torch.Tensor):
+                     gconsts: torch.Tensor, launch=FWD_LIB.launch):
     """Launch 2 of ``stats_fwd``: ``loglike_partials_plain``'s function.
     On the card loglike is an (N, C) view of an (N, round_up(C, 256))
     buffer."""
-    if not _on_card(aug16):
+    if not on_card(aug16, "loglike_partials"):
         return loglike_partials_plain(aug16, projk, gconsts)
     rows, f_pad = aug16.shape
     c = projk.shape[0]
@@ -278,20 +275,16 @@ def loglike_partials(aug16: torch.Tensor, projk: torch.Tensor,
                           device=aug16.device)
     part = torch.empty((rows, n_ct, 2), dtype=torch.float32,
                        device=aug16.device)
-    with torch.cuda.device(aug16.device):
-        rc = _fwd_library().sg_stats_fwd_loglike(
-            aug16.data_ptr(), projk.data_ptr(), gc.data_ptr(),
-            loglike.data_ptr(), part.data_ptr(), rows, c, f_pad,
-            torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "stats_fwd (loglike GEMM)")
+    launch("sg_stats_fwd_loglike", aug16.device, aug16, projk, gc, loglike,
+           part, rows, c, f_pad)
     return loglike[:, :c], part
 
 
 def normalise_stats(loglike: torch.Tensor, part: torch.Tensor,
-                    x: torch.Tensor):
+                    x: torch.Tensor, launch=FWD_LIB.launch):
     """Launch 3 of ``stats_fwd``: ``normalise_stats_plain``'s function.
     loglike may have a row stride larger than C."""
-    if not _on_card(x):
+    if not on_card(x, "normalise_stats"):
         return normalise_stats_plain(loglike, part, x)
     b, t, d = x.shape
     c = loglike.shape[1]
@@ -307,33 +300,13 @@ def normalise_stats(loglike: torch.Tensor, part: torch.Tensor,
     zeroth = torch.empty((b, c), dtype=torch.float32, device=dev)
     first = torch.empty((b, c, d), dtype=torch.float32, device=dev)
     posts16 = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        rc = _fwd_library().sg_stats_fwd_normalise(
-            loglike.data_ptr(), loglike.stride(0), part.data_ptr(),
-            xc.data_ptr(), zeroth.data_ptr(), first.data_ptr(),
-            posts16.data_ptr(), b, t, d, c,
-            torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "stats_fwd (normalise)")
+    launch("sg_stats_fwd_normalise", dev, loglike, loglike.stride(0), part,
+           xc, zeroth, first, posts16, b, t, d, c)
     return zeroth, first, posts16
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_library() -> ctypes.CDLL:
-    """csrc/gmm_stats_bwd.cu, built at first use, with its three C entry
-    points (one per launch) declared."""
-    lib = load_library("gmm_stats_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sg_stats_bwd_dl.argtypes = [p, p, p, p, p, i, p, i, i, i, i, p]
-    lib.sg_stats_bwd_daug.argtypes = [p, i, p, i, p, i, i, i, i, p]
-    lib.sg_stats_bwd_chain.argtypes = [p, i, p, p, p, i, i, p]
-    for fn in (lib.sg_stats_bwd_dl, lib.sg_stats_bwd_daug,
-               lib.sg_stats_bwd_chain):
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def dl_direct(x: torch.Tensor, posts16: torch.Tensor, dzeroth: torch.Tensor,
-              dfirst: torch.Tensor):
+              dfirst: torch.Tensor, launch=BWD_LIB.launch):
     """Launch 1 of ``stats_bwd``: ``dl_direct_plain``'s function.  On the
     card bf16(dl) is an (N, C) view of an (N, round_up(C, 8)) buffer whose
     pad columns are 0; bf16(df) goes in as a (B, C, round_up(D, 16)) copy
@@ -348,7 +321,7 @@ def dl_direct(x: torch.Tensor, posts16: torch.Tensor, dzeroth: torch.Tensor,
                          f"{tuple(posts16.shape)} {posts16.dtype}, dzeroth "
                          f"{tuple(dzeroth.shape)}, dfirst "
                          f"{tuple(dfirst.shape)} (float32 but posts16)")
-    if not _on_card(x):
+    if not on_card(x, "dl_direct"):
         return dl_direct_plain(x, posts16, dzeroth, dfirst)
     if d > MAX_D_CARD:
         raise ValueError(f"dl_direct: D = {d} > {MAX_D_CARD} on the card")
@@ -361,12 +334,8 @@ def dl_direct(x: torch.Tensor, posts16: torch.Tensor, dzeroth: torch.Tensor,
     ldc = -(-c // TMA_ALIGN) * TMA_ALIGN
     dl16 = torch.empty((b * t, ldc), dtype=torch.bfloat16, device=x.device)
     direct = torch.empty((b * t, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _bwd_library().sg_stats_bwd_dl(
-            xc.data_ptr(), pc.data_ptr(), zc.data_ptr(), df16.data_ptr(),
-            dl16.data_ptr(), ldc, direct.data_ptr(), b, t, d, c,
-            torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "stats_bwd (dl)")
+    launch("sg_stats_bwd_dl", x.device, xc, pc, zc, df16, dl16, ldc, direct,
+           b, t, d, c)
     return dl16[:, :c], direct
 
 
@@ -380,7 +349,8 @@ def _tma_rows(a: torch.Tensor) -> torch.Tensor:
     return F.pad(a, (0, -a.shape[1] % TMA_ALIGN)).contiguous()
 
 
-def daug_gemm(dl16: torch.Tensor, proj16: torch.Tensor) -> torch.Tensor:
+def daug_gemm(dl16: torch.Tensor, proj16: torch.Tensor,
+              launch=BWD_LIB.launch) -> torch.Tensor:
     """Launch 2 of ``stats_bwd``: ``daug_plain``'s function.  On the card
     daug is an (N, F) view of an (N, round_up(F, 256)) buffer."""
     if (dl16.ndim != 2 or proj16.ndim != 2
@@ -390,24 +360,20 @@ def daug_gemm(dl16: torch.Tensor, proj16: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"daug_gemm: dl16 {tuple(dl16.shape)} "
                          f"{dl16.dtype}, proj16 {tuple(proj16.shape)} "
                          f"{proj16.dtype} (bf16, (N, C) and (F, C))")
-    if not _on_card(dl16):
+    if not on_card(dl16, "daug_gemm"):
         return daug_plain(dl16, proj16)
     rows, c = dl16.shape
     f = proj16.shape[0]
     a, pj = _tma_rows(dl16), _tma_rows(proj16)
     ldf = -(-f // N_TILE) * N_TILE
     daug = torch.empty((rows, ldf), dtype=torch.float32, device=dl16.device)
-    with torch.cuda.device(dl16.device):
-        rc = _bwd_library().sg_stats_bwd_daug(
-            a.data_ptr(), a.stride(0), pj.data_ptr(), pj.stride(0),
-            daug.data_ptr(), ldf, rows, c, f,
-            torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "stats_bwd (daug GEMM)")
+    launch("sg_stats_bwd_daug", dl16.device, a, a.stride(0), pj, pj.stride(0),
+           daug, ldf, rows, c, f)
     return daug[:, :f]
 
 
-def chain_sum(daug: torch.Tensor, x: torch.Tensor,
-              direct: torch.Tensor) -> torch.Tensor:
+def chain_sum(daug: torch.Tensor, x: torch.Tensor, direct: torch.Tensor,
+              launch=BWD_LIB.launch) -> torch.Tensor:
     """Launch 3 of ``stats_bwd``: ``chain_sum_plain``'s function.  daug may
     have a row stride larger than F (a multiple of 4)."""
     b, t, d = x.shape
@@ -417,18 +383,15 @@ def chain_sum(daug: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"chain_sum: daug {tuple(daug.shape)}, x "
                          f"{tuple(x.shape)}, direct {tuple(direct.shape)} "
                          f"(float32, (N, F), (B, T, D), (N, D))")
-    if not _on_card(x):
+    if not on_card(x, "chain_sum"):
         return chain_sum_plain(daug, x, direct)
     if daug.stride(1) != 1 or daug.stride(0) % 4 or daug.data_ptr() % 16:
         raise ValueError(f"chain_sum: daug's rows (stride "
                          f"{daug.stride()}) must start 16-byte aligned")
     xc, dc = x.contiguous(), direct.contiguous()
     dx = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _bwd_library().sg_stats_bwd_chain(
-            daug.data_ptr(), daug.stride(0), xc.data_ptr(), dc.data_ptr(),
-            dx.data_ptr(), n, d, torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "stats_bwd (chain)")
+    launch("sg_stats_bwd_chain", x.device, daug, daug.stride(0), xc, dc, dx,
+           n, d)
     return dx
 
 
@@ -443,22 +406,23 @@ class _StatsFwd(KernelWrapper):
     """``stats_fwd(x, proj16, gconsts) -> (zeroth, first, posts16)``."""
 
     name = "stats_fwd"
+    lib = FWD_LIB
 
     def __call__(self, x, proj16, gconsts):
         _check(x, proj16, gconsts)
         if not self.route(x):
             return stats_fwd_plain(x, proj16, gconsts)
-        loglike, part = loglike_partials(augment16_padded(x),
-                                         proj_kmajor(proj16), gconsts)
-        out = normalise_stats(loglike, part, x)
-        self.launches += 1
-        return out
+        launch = self.lib.launch
+        loglike, part = loglike_partials(augment16_padded(x, launch),
+                                         proj_kmajor(proj16), gconsts, launch)
+        return normalise_stats(loglike, part, x, self._launch)
 
 
 class _StatsBwd(KernelWrapper):
     """``stats_bwd(x, proj16, posts16, dzeroth, dfirst) -> dx``."""
 
     name = "stats_bwd"
+    lib = BWD_LIB
 
     def __call__(self, x, proj16, posts16, dzeroth, dfirst):
         b, t, d = x.shape
@@ -478,10 +442,10 @@ class _StatsBwd(KernelWrapper):
         dfirst = dfirst.to(torch.float32)
         if not self.route(x):
             return stats_bwd_plain(x, proj16, posts16, dzeroth, dfirst)
-        dl16, direct = dl_direct(x, posts16, dzeroth, dfirst)
-        dx = chain_sum(daug_gemm(dl16, proj16), x, direct)
-        self.launches += 1
-        return dx
+        launch = self.lib.launch
+        dl16, direct = dl_direct(x, posts16, dzeroth, dfirst, launch)
+        return chain_sum(daug_gemm(dl16, proj16, launch), x, direct,
+                         self._launch)
 
 
 stats_fwd = _StatsFwd()

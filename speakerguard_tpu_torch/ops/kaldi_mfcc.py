@@ -42,7 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from speakerguard_tpu_torch.models.gmm import dot_f32, fast_dot_dtype
+from speakerguard_tpu_torch.ops.matmul import dot_f32, fast_dot_dtype
 
 EPSILON = 1.1920928955078125e-07  # float32 eps, matches Kaldi's epsilon
 

@@ -25,8 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from speakerguard_tpu_torch.models.gmm import fast_dot_dtype
 from speakerguard_tpu_torch.ops.kaldi_mfcc import _Framer, _Power, dft_matrices
+from speakerguard_tpu_torch.ops.matmul import fast_dot_dtype
 
 EPSILON = 1e-16
 

@@ -28,21 +28,20 @@ card, float32 on the CPU).  On the card they are the kernels' yardstick
 tensors.  ``kaldi_mfcc`` on the CPU and its exact path never come here.
 """
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from speakerguard_tpu_torch.models.gmm import fast_dot_dtype
-from speakerguard_tpu_torch.ops._build import (KernelWrapper, check_rc,
-                                               launch_on)
+from speakerguard_tpu_torch.ops._build import (FLT, INT, PTR, KernelWrapper,
+                                               Library)
 from speakerguard_tpu_torch.ops.kaldi_mfcc import (EPSILON, MfccConfig,
                                                    _frame_index, dct_matrix,
                                                    dft_matrices,
                                                    feature_window,
                                                    lifter_coeffs, mel_banks,
                                                    num_frames)
+from speakerguard_tpu_torch.ops.matmul import fast_dot_dtype
 
 WINDOW, SHIFT, N_FFT = 400, 160, 512   # the one framing the kernel takes
 CHUNK = 64         # bins of a DFT chunk: its cosine rows, then its sines
@@ -225,33 +224,18 @@ def mfcc_bwd_plain(wav, noise, cfg, mel, cot, dtype=None):
 # the kernels
 # ---------------------------------------------------------------------------
 
-_PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The argument types of csrc/mfcc.cu's C entry points, in order (a CPU test
-# holds them to the source's extern "C" declarations); each returns an int.
+# The argument types of csrc/mfcc.cu's C entry points, in order.
 ARGTYPES = {
     # wav, noise, dither, b, len, t, nmel, nceps, dft, mel_lo, mel_hi,
     # bin_lo, bin_w, dct_t, dct_ld, lifter, feat, mel, stream
-    "sg_mfcc_fwd": [_PTR, _PTR, _FLT, _INT, _INT, _INT, _INT, _INT, _PTR,
-                    _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR,
-                    _PTR],
+    "sg_mfcc_fwd": [PTR, PTR, FLT, INT, INT, INT, INT, INT, PTR, PTR, PTR,
+                    PTR, PTR, PTR, INT, PTR, PTR, PTR, PTR],
     # wav, noise, dither, b, len, t, nmel, nceps, dft, dft_t, bin_lo,
     # bin_w, dct, dct_ld, lifter, mel, cot, gm, gld, gwav, stream
-    "sg_mfcc_bwd": [_PTR, _PTR, _FLT, _INT, _INT, _INT, _INT, _INT, _PTR,
-                    _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR,
-                    _INT, _PTR, _PTR],
+    "sg_mfcc_bwd": [PTR, PTR, FLT, INT, INT, INT, INT, INT, PTR, PTR, PTR,
+                    PTR, PTR, INT, PTR, PTR, PTR, PTR, INT, PTR, PTR],
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The C entry points of csrc/mfcc.cu, built at first use."""
-    from speakerguard_tpu_torch.ops._build import load_library
-    lib = load_library("mfcc")
-    for name, args in ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    return lib
+LIB = Library("mfcc", ARGTYPES)
 
 
 def _operands(wav, noise, cfg):
@@ -275,21 +259,11 @@ def _operands(wav, noise, cfg):
     return wav.contiguous(), noise, t
 
 
-class _MfccKernel(KernelWrapper):
-    """A direction's wrapper: ``launches`` counts its kernel's launches on
-    CUDA tensors, ``plain_calls`` its plain version's runs on CPU ones."""
-
-    def _launch(self, entry: str, device, *args):
-        check_rc(launch_on(device, getattr(_lib(), entry), *(
-            a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args)), self.name)
-        self.launches += 1
-
-
-class _MfccFwd(_MfccKernel):
+class _MfccFwd(KernelWrapper):
     """``mfcc_fwd(wav, noise, cfg) -> (features, mel)``."""
 
     name = "mfcc_fwd"
+    lib = LIB
 
     def __call__(self, wav, noise, cfg):
         check_config(cfg)
@@ -308,10 +282,11 @@ class _MfccFwd(_MfccKernel):
         return feat, mel
 
 
-class _MfccBwd(_MfccKernel):
+class _MfccBwd(KernelWrapper):
     """``mfcc_bwd(wav, noise, cfg, mel, cot) -> the wave's gradient``."""
 
     name = "mfcc_bwd"
+    lib = LIB
 
     def __call__(self, wav, noise, cfg, mel, cot):
         check_config(cfg)

@@ -50,14 +50,13 @@ selected by passing ``gamma`` and ``beta``:
   rounded once to bf16).
 """
 
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from speakerguard_tpu_torch.ops._build import (KernelWrapper, check_rc,
-                                               launch_on)
+from speakerguard_tpu_torch.ops._build import (INT, PTR, KernelWrapper,
+                                               Library)
 
 BN_EPS = 1e-5
 TILE_N = 256   # output columns of the kernel's tile: the vectors' padding
@@ -350,42 +349,22 @@ def _check_fwd(x, w, b, mean, var, dilation, gamma=None, beta=None):
                              f"{t.device}")
 
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# The argument types of csrc/tdnn_conv.cu's C entry points, in order (a CPU
-# test holds them to the source's extern "C" declarations); each returns an
-# int.
+# The argument types of csrc/tdnn_conv.cu's C entry points, in order (the
+# launch dicts name their arguments in the same order).
 ARGTYPES = {
     # x, x_rows, cin, x_ld, wf, k, vecs, vec_len, out, out_ld, mask,
     # mask_ld, rows, ts, t_out, cout, dil, affine, stream
-    "sg_tdnn_conv_fwd": [_PTR, _INT, _INT, _INT, _PTR, _INT, _PTR, _INT,
-                         _PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _INT,
-                         _INT, _INT, _PTR],
+    "sg_tdnn_conv_fwd": [PTR, INT, INT, INT, PTR, INT, PTR, INT, PTR, INT,
+                         PTR, INT, INT, INT, INT, INT, INT, INT, PTR],
     # g, g_rows, g_ld, mask, mask_ld, s, vec_len, wb, k, gx, gx_ld, rows,
     # ts, t_in, cin, cout, dil, stream
-    "sg_tdnn_conv_bwd": [_PTR, _INT, _INT, _PTR, _INT, _PTR, _INT, _PTR,
-                         _INT, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
-                         _INT, _PTR],
+    "sg_tdnn_conv_bwd": [PTR, INT, INT, PTR, INT, PTR, INT, PTR, INT, PTR,
+                         INT, INT, INT, INT, INT, INT, INT, PTR],
     "sg_tdnn_conv_tile_n": [],
     "sg_tdnn_conv_tile_k": [],
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The C entry points of csrc/tdnn_conv.cu, built at first use."""
-    from speakerguard_tpu_torch.ops._build import load_library
-    lib = load_library("tdnn_conv")
-    for name, args in ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    if (lib.sg_tdnn_conv_tile_n(), lib.sg_tdnn_conv_tile_k()) != (
-            TILE_N, TILE_K):
-        raise RuntimeError(f"csrc/tdnn_conv.cu tiles "
-                           f"{lib.sg_tdnn_conv_tile_n()} x "
-                           f"{lib.sg_tdnn_conv_tile_k()}, ops/tdnn_conv.py "
-                           f"{TILE_N} x {TILE_K}")
-    return lib
+LIB = Library("tdnn_conv", ARGTYPES, {"sg_tdnn_conv_tile_n": TILE_N,
+                                      "sg_tdnn_conv_tile_k": TILE_K})
 
 
 def _ext_rows(t: torch.Tensor, ts: int) -> int:
@@ -441,14 +420,6 @@ def bwd_operands(g, mask, w, vecs, dilation):
                 ts=ts, t_in=t_in, cin=cin, cout=cout, dil=dilation)
 
 
-def _call(fn, op: dict, device) -> int:
-    """Call a C entry point with ``op``'s arguments in order (tensors by
-    pointer) on ``device``'s current stream."""
-    return launch_on(device, fn, *(
-        v.data_ptr() if isinstance(v, torch.Tensor) else int(v)
-        for v in op.values()))
-
-
 class _Plan:
     """What a launch of one operand layout needs besides its tensors
     (``_TdnnConv._plans``): the launch dict (``fwd_operands``,
@@ -497,6 +468,7 @@ class _TdnnConv(KernelWrapper):
     ECAPA's steps)."""
 
     name = "tdnn_conv"
+    lib = LIB
 
     def __init__(self):
         super().__init__()
@@ -530,7 +502,7 @@ class _TdnnConv(KernelWrapper):
                            vecs=epilogue_vectors(*vecs),
                            out=plan.alloc("out", torch.bfloat16, x.device),
                            mask=plan.alloc("mask", torch.uint8, x.device))
-        self._launch("sg_tdnn_conv_fwd", op, x.device)
+        self._launch("sg_tdnn_conv_fwd", x.device, *op.values())
         return op["out"], (op["mask"], w, op["vecs"])
 
     def backward(self, g, mask, w, v, dilation, gamma=None):
@@ -549,13 +521,9 @@ class _TdnnConv(KernelWrapper):
             op = plan.fill(g=gk, g_ld=gk.stride(1), mask=mask, s=v[2],
                            wb=weight_packs(w)[1],
                            gx=plan.alloc("gx", torch.bfloat16, g.device))
-        self._launch("sg_tdnn_conv_bwd", op, g.device)
+        self._launch("sg_tdnn_conv_bwd", g.device, *op.values())
         pad = same_pad(w.shape[2], dilation) if gamma is not None else 0
         return fold_reflected(op["gx"], pad) if pad else op["gx"]
-
-    def _launch(self, entry: str, op: dict, device):
-        check_rc(_call(getattr(_lib(), entry), op, device), self.name)
-        self.launches += 1
 
 
 tdnn_conv = _TdnnConv()

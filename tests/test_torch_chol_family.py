@@ -10,9 +10,6 @@ by chip_smoke.py).  Sizes stay at N <= 150: the Pallas interpret mode is
 slow.  N = 150 has two 128-row diagonal blocks, the second ragged.
 """
 
-import ctypes
-import re
-
 import numpy as np
 import pytest
 import jax
@@ -27,10 +24,9 @@ from speakerguard_tpu.ops.trsv import triangular_solve_vec as jax_tsv
 
 from speakerguard_tpu_torch.models.ivector import spd_solve
 from speakerguard_tpu_torch.ops.chol import (
-    ARGTYPES, MAX_N, chol_solve, chol_solve_plain, cholesky_rt,
+    MAX_N, chol_solve, chol_solve_plain, cholesky_rt,
     cholesky_rt_dinv, cholesky_rt_dinv_plain, cholesky_rt_plain,
     diag_block_inverses_t)
-from speakerguard_tpu_torch.ops._build import CSRC
 from speakerguard_tpu_torch.ops.trsv import triangular_solve_vec
 
 from test_torch_chol import _spd, _spd_occupancy
@@ -337,34 +333,6 @@ def test_cuda_chol_solve_kernel_matches_plain(b, n, kind):
     f64 = np.linalg.solve(spd.astype(np.float64),
                           v.astype(np.float64)[..., None])[..., 0]
     np.testing.assert_allclose(x.cpu().numpy(), f64, rtol=1e-3, atol=1e-4)
-
-
-def _c_declarations():
-    """{name: [argument declarations]} of csrc/chol.cu's extern "C" int
-    functions."""
-    src = (CSRC / "chol.cu").read_text()
-    out = {}
-    for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
-        out[name] = [a.strip() for a in args.split(",") if a.strip()]
-    return out
-
-
-@pytest.mark.parametrize("name", sorted(ARGTYPES))
-def test_ctypes_signatures_match_the_source(name):
-    """ops/chol.py's argument types against each extern "C" declaration of
-    csrc/chol.cu: the same count, a pointer where the C side takes a
-    pointer (or the stream), an int where it takes an int.  A mismatch
-    would otherwise show only on the card, as a crash."""
-    decls = _c_declarations()
-    assert set(decls) == set(ARGTYPES)
-    c_args, py_args = decls[name], ARGTYPES[name]
-    assert len(c_args) == len(py_args), (c_args, py_args)
-    for c, t in zip(c_args, py_args):
-        if "*" in c:
-            assert t is ctypes.c_void_p, (name, c)
-        else:
-            assert re.fullmatch(r"int \w+", c), (name, c)
-            assert t is ctypes.c_int, (name, c)
 
 
 @pytest.mark.cuda

@@ -249,7 +249,8 @@ def test_kernel_route_model_matches_plain_route(params, enrolled, waves,
 
 
 @pytest.mark.parametrize("route", ["plain", "kernel"])
-def test_res2_node_equals_per_block_chain(params, route, emulated):
+def test_res2_node_equals_per_block_chain(params, route, emulated,
+                                          monkeypatch):
     """The fast path's Res2 chain as one autograd node against the same
     chain of ``_tb_fast`` blocks under autograd: output and input
     cotangent bit for bit, on the plain route and on the kernel route
@@ -260,7 +261,7 @@ def test_res2_node_equals_per_block_chain(params, route, emulated):
         torch.bfloat16)
     gy = torch.randn(u.shape, generator=gen).to(torch.bfloat16)
     if route == "plain":
-        emulated.route = lambda t: False
+        monkeypatch.setattr(emulated, "route", lambda t: False)
 
     def run(fn):
         x = u.clone().requires_grad_(True)

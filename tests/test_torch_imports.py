@@ -1,7 +1,8 @@
 """Import hygiene of the port: no module of speakerguard_tpu_torch, and not
 chip_smoke.py or the port's tools for the card, imports jax (or optax,
 orbax) or the JAX package speakerguard_tpu; nor does the data-parallel
-tests' rank module, which spawned ranks import."""
+tests' rank module, which spawned ranks import.  No module of the ops
+layer imports a model."""
 
 import ast
 import importlib
@@ -42,6 +43,17 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+OPS_FILES = sorted((ROOT / "speakerguard_tpu_torch" / "ops").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", OPS_FILES, ids=lambda p: p.name)
+def test_ops_import_no_model(path):
+    """The ops layer lies below the models: no ops module imports one."""
+    bad = [m for m in _imported_modules(path)
+           if m.startswith("speakerguard_tpu_torch.models")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
 # the modules of each slice, named so that a file moved out of the package
 # cannot silently drop out of the checks above
 SLICE_MODULES = [
@@ -67,6 +79,7 @@ SLICE_MODULES = [
     "parallel/__init__.py", "parallel/mesh.py", "parallel/input.py",
     "parallel/rank_checks.py",
     "utils/profiling.py", "cli/natural_train.py", "cli/adver_train.py",
+    "ops/matmul.py",
 ]
 
 

@@ -64,13 +64,20 @@ def one_cpu_thread():
     run (six workers on eight cores) their SVDs and small products spent
     most of their time in spinning thread pools: beside ten busy
     processes on eight cores, one case took 121 s with eight threads and
-    8.5 s with one."""
-    from threadpoolctl import threadpool_limits
+    8.5 s with one.  The card's machine has no threadpoolctl: there
+    torch's threads alone are limited."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        threadpool_limits = None
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        with threadpool_limits(limits=1):
+        if threadpool_limits is None:
             yield
+        else:
+            with threadpool_limits(limits=1):
+                yield
     finally:
         torch.set_num_threads(n)
 

@@ -132,7 +132,8 @@ def test_split_pairs_are_the_six_leading_terms_smallest_first():
 
 def _bad_split_operands():
     """(helper, args) pairs the launch helpers must refuse with ValueError:
-    a wrong shape, dtype or layout each, and CPU tensors (no fallback)."""
+    a wrong shape, dtype or layout each; and good operands on the CPU,
+    which the helpers give their plain versions."""
     x = torch.zeros(2, 5, 6)
     aug_s = L.augment_split_plain(x)                      # (10, 192)
     _, qp, gc = _gmm(1, 64, 6)
@@ -163,6 +164,11 @@ def _bad_split_operands():
     "gemm on the cpu"])
 def test_split_launch_helpers_check_their_operands(case):
     fn, args = _bad_split_operands()[case]
+    if case.endswith("on the cpu"):
+        plain = {L.aug_split: L.augment_split_plain,
+                 L.loglike_split_gemm: L.loglike_split_plain}[fn]
+        assert torch.equal(fn(*args), plain(*args))
+        return
     with pytest.raises(ValueError):
         fn(*args)
 

@@ -32,7 +32,6 @@ Bars:
   the edge inputs, and the fused defense to the unfused composition.
 """
 
-import ctypes
 import os
 import re
 import stat
@@ -144,27 +143,6 @@ def test_adpcm_shapes_and_gradient():
     np.testing.assert_array_equal(_grad_of_sum(SC.ADPCM, x), 1.0)
     with pytest.raises(ValueError, match="bits"):
         A.adpcm(torch.zeros(1, 4), bits=1)
-
-
-def _c_declarations():
-    src = (CSRC / "adpcm.cu").read_text()
-    return {name: [a.strip() for a in args.split(",") if a.strip()]
-            for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
-                                         src)}
-
-
-@pytest.mark.parametrize("name", sorted(A.ARGTYPES))
-def test_adpcm_ctypes_signatures_match_the_source(name):
-    decls = _c_declarations()
-    assert set(decls) == set(A.ARGTYPES)
-    c_args, py_args = decls[name], A.ARGTYPES[name]
-    assert len(c_args) == len(py_args), (c_args, py_args)
-    for c, t in zip(c_args, py_args):
-        if "*" in c:
-            assert t is ctypes.c_void_p, (name, c)
-        else:
-            assert re.fullmatch(r"int \w+", c), (name, c)
-            assert t is ctypes.c_int, (name, c)
 
 
 def test_adpcm_tables_match_the_source():

@@ -23,9 +23,9 @@ the bf16 blocks), and count its launches: 10 a PGD iteration.
 This file runs on one CPU thread (``one_cpu_thread``) and imports no JAX.
 """
 
-import ctypes
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -37,6 +37,7 @@ from speakerguard_tpu_torch.ops import tdnn_conv as TC
 
 from tdnn_bars import (assert_bf16_affine_close, assert_bf16_block_close,
                        assert_within_top_bf16_ulp)
+from test_torch_build import c_declarations
 
 CSRC = Path(TC.__file__).resolve().parent.parent / "csrc"
 LAYERS = range(len(TT.TDNN_SPEC))
@@ -143,19 +144,28 @@ def emulate_bwd(op):
     return 0
 
 
+# each entry point's argument names, the stream aside: the launch dict's
+# keys (test_launch_dicts_name_the_arguments_in_order)
+ARG_NAMES = {entry: [a.split()[-1].lstrip("*") for a in args[:-1]]
+             for entry, args in c_declarations("tdnn_conv").items()}
+EMULATE = {"sg_tdnn_conv_fwd": emulate_fwd, "sg_tdnn_conv_bwd": emulate_bwd}
+
+
+def launch_dict(entry, args):
+    """A launch's arguments as the launch dict they were passed from."""
+    return dict(zip(ARG_NAMES[entry], args))
+
+
 @pytest.fixture
 def emulated(monkeypatch):
     """The wrapper's kernel route on CPU tensors, each launch emulated."""
-    emulate = {"sg_tdnn_conv_fwd": emulate_fwd,
-               "sg_tdnn_conv_bwd": emulate_bwd}
     w = TC.tdnn_conv
 
-    def launch(entry, op, device):
-        assert emulate[entry](op) == 0
-        w.launches += 1
+    def launch(entry, device, *args):
+        assert EMULATE[entry](launch_dict(entry, args)) == 0
 
-    monkeypatch.setattr(w, "route", lambda t: True)
-    monkeypatch.setattr(w, "_launch", launch)
+    monkeypatch.setattr(w, "on_card", lambda t, what: True)
+    monkeypatch.setattr(w, "lib", SimpleNamespace(launch=launch))
     w.reset_counts()
     yield w
     w.reset_counts()
@@ -199,33 +209,6 @@ def _assert_close_to_plain(x, g, args, out, dx, mask):
                                p_dx.float().cpu().numpy())
 
 
-def _c_declarations():
-    src = (CSRC / "tdnn_conv.cu").read_text()
-    return {name: [a.strip() for a in args.split(",") if a.strip()]
-            for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
-                                         src)}
-
-
-@pytest.mark.parametrize("name", sorted(TC.ARGTYPES))
-def test_ctypes_signatures_match_the_source(name):
-    decls = _c_declarations()
-    assert set(decls) == set(TC.ARGTYPES)
-    c_args, py_args = decls[name], TC.ARGTYPES[name]
-    assert len(c_args) == len(py_args), (c_args, py_args)
-    for c, t in zip(c_args, py_args):
-        if "*" in c:
-            assert t is ctypes.c_void_p, (name, c)
-        else:
-            assert re.fullmatch(r"int \w+", c), (name, c)
-            assert t is ctypes.c_int, (name, c)
-    # the launch dicts name the entry points' arguments in order
-    order = {"sg_tdnn_conv_fwd": TC.fwd_operands,
-             "sg_tdnn_conv_bwd": TC.bwd_operands}
-    if name in order:
-        names = [a.split()[-1].lstrip("*") for a in c_args[:-1]]
-        assert names == list(_operands(name).keys())
-
-
 @pytest.mark.parametrize("layer", [0, 1])
 @pytest.mark.parametrize("affine", [False, True])
 def test_launch_plan_fills_the_operands_as_built(affine, layer, emulated,
@@ -236,14 +219,13 @@ def test_launch_plan_fills_the_operands_as_built(affine, layer, emulated,
     shape, stride and contents; layer 1's 30 channels copied into rows of
     32 on both."""
     seen = []
-    emulate = {"sg_tdnn_conv_fwd": emulate_fwd,
-               "sg_tdnn_conv_bwd": emulate_bwd}
 
-    def launch(entry, op, device):
+    def launch(entry, device, *args):
+        op = launch_dict(entry, args)
         seen.append((entry, op))
-        assert emulate[entry](op) == 0
+        assert EMULATE[entry](op) == 0
 
-    monkeypatch.setattr(emulated, "_launch", launch)
+    monkeypatch.setattr(emulated, "lib", SimpleNamespace(launch=launch))
     tp = TT.random_tdnn(np.random.default_rng(3), device="cpu")
     x, g, args = _block_case(tp, layer, 2, 30, 3)
     if affine:
@@ -279,6 +261,14 @@ def _operands(entry):
     if entry == "sg_tdnn_conv_fwd":
         return op
     return TC.bwd_operands(g, op["mask"], args[0], op["vecs"], args[-1])
+
+
+@pytest.mark.parametrize("entry", ["sg_tdnn_conv_fwd", "sg_tdnn_conv_bwd"])
+def test_launch_dicts_name_the_arguments_in_order(entry):
+    """``fwd_operands`` and ``bwd_operands`` build their launch dicts in
+    the entry point's argument order, under its argument names: the
+    wrapper passes the dict's values in order."""
+    assert list(_operands(entry)) == ARG_NAMES[entry]
 
 
 def test_tiles_match_the_source():
